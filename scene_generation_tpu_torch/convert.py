@@ -1,0 +1,233 @@
+"""Weights into and out of the port.
+
+``state_dict_from_jax`` maps the JAX package's ``SceneModel`` variables
+(``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy arrays,
+the output of ``jax.device_get``) onto this package's ``SceneModel``
+state_dict:
+
+  Dense           kernel (in, out)        -> weight (out, in)
+  Conv            kernel HWIO             -> weight OIHW
+  ConvTranspose   'SAME' (flax layout)    kernel (kh, kw, in, out)
+                                          -> flip_hw(kernel) as (in, out, kh, kw)
+                  torch_deconv            kernel (kh, kw, out, in)
+                                          -> (in, out, kh, kw)
+  Embed           embedding               -> weight
+  MaskedBatchNorm scale (offset from 1), bias, batch_stats mean / var
+                                          -> scale, bias, running_mean / var
+
+Scan-stacked trees (``gconv_net/layers/gconv``, ``resblocks/block``) are
+split along their leading axis; unrolled ``resblock_i`` are taken as they
+are. The map is strict: a key it does not consume, or one it needs and
+does not find, raises.
+
+The port's own checkpoint is a directory with ``model.pt`` (the
+state_dict), ``config.json`` and ``vocab.json``: ``save_checkpoint`` and
+``load_checkpoint``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from scene_generation_tpu_torch import resolve_device
+from scene_generation_tpu_torch.config import Config, ModelConfig
+from scene_generation_tpu_torch.models.model import SceneModel
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str,
+             out: Dict[str, np.ndarray]) -> None:
+    for k, v in tree.items():
+        key = f"{prefix}/{k}"
+        if isinstance(v, Mapping):
+            _flatten(v, key, out)
+        else:
+            out[key] = np.asarray(v)
+
+
+class _Vars:
+    """Strict key accounting over flattened ``collection/path/leaf`` keys."""
+
+    def __init__(self, flat: Dict[str, np.ndarray]):
+        self._flat = flat
+        self._used = set()
+
+    def take(self, key: str) -> np.ndarray:
+        if key not in self._flat:
+            raise KeyError(f"JAX variables are missing '{key}'")
+        self._used.add(key)
+        return self._flat[key]
+
+    def has(self, prefix: str) -> bool:
+        return any(k.startswith(prefix + "/") for k in self._flat)
+
+    def layer(self, prefixes: Tuple[str, ...], i: int) -> "_Vars":
+        """Slice ``i`` of every scan-stacked leaf under ``prefixes``."""
+        sub = {}
+        for k, v in self._flat.items():
+            if any(k.startswith(p + "/") for p in prefixes):
+                self._used.add(k)
+                sub[k] = v[i]
+        return _Vars(sub)
+
+    def finish(self) -> None:
+        left = sorted(k for k in self._flat if k not in self._used)
+        if left:
+            raise ValueError("JAX variables the port does not use: "
+                             + ", ".join(left[:20])
+                             + (" ..." if len(left) > 20 else ""))
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _dense(v: _Vars, j: str, p: str, sd: Dict) -> None:
+    sd[f"{p}.weight"] = _t(v.take(f"params/{j}/kernel").T)
+    sd[f"{p}.bias"] = _t(v.take(f"params/{j}/bias"))
+
+
+def _conv(v: _Vars, j: str, p: str, sd: Dict) -> None:
+    sd[f"{p}.weight"] = _t(v.take(f"params/{j}/kernel").transpose(3, 2, 0, 1))
+    sd[f"{p}.bias"] = _t(v.take(f"params/{j}/bias"))
+
+
+def _deconv(v: _Vars, j: str, p: str, sd: Dict, torch_deconv: bool) -> None:
+    k = v.take(f"params/{j}/kernel")
+    k = k.transpose(3, 2, 0, 1) if torch_deconv else \
+        k[::-1, ::-1].transpose(2, 3, 0, 1)
+    sd[f"{p}.weight"] = _t(k)
+    sd[f"{p}.bias"] = _t(v.take(f"params/{j}/bias"))
+
+
+def _bn(v: _Vars, j: str, p: str, sd: Dict) -> None:
+    sd[f"{p}.scale"] = _t(v.take(f"params/{j}/scale"))
+    sd[f"{p}.bias"] = _t(v.take(f"params/{j}/bias"))
+    sd[f"{p}.running_mean"] = _t(v.take(f"batch_stats/{j}/mean"))
+    sd[f"{p}.running_var"] = _t(v.take(f"batch_stats/{j}/var"))
+
+
+def _mlp(v: _Vars, j: str, p: str, sd: Dict, n_dense: int, n_bn: int) -> None:
+    for i in range(n_dense):
+        _dense(v, f"{j}/Dense_{i}", f"{p}.layers.{i}", sd)
+    for i in range(n_bn):
+        _bn(v, f"{j}/MaskedBatchNorm_{i}", f"{p}.bns.{i}", sd)
+
+
+def _gconv(v: _Vars, j: str, p: str, sd: Dict, bn: bool) -> None:
+    for net in ("net1", "net2"):
+        _mlp(v, f"{j}/{net}", f"{p}.{net}", sd, 2, 2 if bn else 0)
+
+
+def state_dict_from_jax(variables: Mapping[str, Any],
+                        cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The JAX ``SceneModel`` variables -> this package's state_dict (f32).
+
+    ``variables`` must hold every parameter of the model, the appearance
+    encoder's included (as a train-mode ``init`` or a trained checkpoint
+    does).
+    """
+    flat: Dict[str, np.ndarray] = {}
+    for coll in ("params", "batch_stats"):
+        _flatten(variables.get(coll, {}), coll, flat)
+    unknown = sorted(set(variables) - {"params", "batch_stats"})
+    if unknown:
+        raise ValueError(f"unknown variable collections {unknown}")
+    v = _Vars(flat)
+    sd: Dict[str, torch.Tensor] = {}
+    bn = cfg.mlp_normalization == "batch"
+    n_bn = 2 if bn else 0
+
+    for name in ("obj_embeddings", "pred_embeddings") + (
+            ("class_embed",) if cfg.layout_embed_dim else ()):
+        sd[f"{name}.weight"] = _t(v.take(f"params/{name}/embedding"))
+    if cfg.gconv_num_layers == 0:
+        _dense(v, "gconv_linear", "gconv_linear", sd)
+    else:
+        _gconv(v, "gconv", "gconv", sd, bn)
+    if cfg.gconv_num_layers > 1:
+        stacked = ("params/gconv_net/layers/gconv",
+                   "batch_stats/gconv_net/layers/gconv")
+        for i in range(cfg.gconv_num_layers - 1):
+            layer = v.layer(stacked, i)
+            _gconv(layer, "gconv_net/layers/gconv", f"gconv_net.layers.{i}",
+                   sd, bn)
+            layer.finish()
+
+    box_bn = (2 if cfg.box_net_final == "relu" else 1) if bn else 0
+    _mlp(v, "box_net", "box_net", sd, 2, box_bn)
+    _mlp(v, "repr_net", "repr_net", sd, 2, n_bn)
+
+    n_up = int(math.log2(cfg.mask_size))
+    for i in range(n_up):
+        _conv(v, f"mask_net/Conv_{i}", f"mask_net.convs.{i}", sd)
+        _bn(v, f"mask_net/MaskedBatchNorm_{i}", f"mask_net.bns.{i}", sd)
+    _conv(v, f"mask_net/Conv_{n_up}", "mask_net.out", sd)
+
+    n_convs = len([s for s in cfg.appearance_arch.split(",")
+                   if not s.startswith("I")])
+    for i in range(n_convs):
+        _conv(v, f"image_encoder/CNN_0/Conv_{i}",
+              f"image_encoder.cnn.convs.{i}", sd)
+        if i and cfg.appearance_normalization == "batch":
+            _bn(v, f"image_encoder/CNN_0/MaskedBatchNorm_{i - 1}",
+                f"image_encoder.cnn.bns.{i - 1}", sd)
+    _dense(v, "image_encoder/Dense_0", "image_encoder.dense", sd)
+
+    g, nd = "layout_to_image", cfg.n_downsample_global
+    _conv(v, f"{g}/Conv_0", f"{g}.stem.conv", sd)
+    for i in range(nd):
+        _conv(v, f"{g}/Conv_{i + 1}", f"{g}.downs.{i}", sd)
+    if v.has(f"params/{g}/resblocks"):
+        for i in range(cfg.n_blocks_global):
+            block = v.layer((f"params/{g}/resblocks/block",), i)
+            _conv(block, f"{g}/resblocks/block/Conv_0",
+                  f"{g}.blocks.{i}.conv1", sd)
+            _conv(block, f"{g}/resblocks/block/Conv_1",
+                  f"{g}.blocks.{i}.conv2", sd)
+            block.finish()
+    else:
+        for i in range(cfg.n_blocks_global):
+            _conv(v, f"{g}/resblock_{i}/Conv_0", f"{g}.blocks.{i}.conv1", sd)
+            _conv(v, f"{g}/resblock_{i}/Conv_1", f"{g}.blocks.{i}.conv2", sd)
+    for i in range(nd):
+        _deconv(v, f"{g}/ConvTranspose_{i}", f"{g}.ups.{i}", sd,
+                cfg.torch_deconv)
+    _conv(v, f"{g}/Conv_{nd + 1}", f"{g}.head", sd)
+    v.finish()
+    return sd
+
+
+def save_checkpoint(directory: str, model: SceneModel, cfg: Config,
+                    vocab: Dict) -> None:
+    """Write ``model.pt`` (the state_dict, f32 on the CPU),
+    ``config.json`` and ``vocab.json`` into ``directory``."""
+    os.makedirs(directory, exist_ok=True)
+    sd = {k: t.detach().float().cpu() for k, t in model.state_dict().items()}
+    torch.save(sd, os.path.join(directory, "model.pt"))
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    with open(os.path.join(directory, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+
+
+def load_checkpoint(directory: str, device: Optional[str] = None
+                    ) -> Tuple[Config, Dict, SceneModel]:
+    """Read a checkpoint written by ``save_checkpoint``: the config, the
+    vocab, and the model on ``device`` (CUDA unless ``device="cpu"``) in
+    the config's compute dtype, in eval mode."""
+    dev = resolve_device(device)
+    with open(os.path.join(directory, "config.json")) as f:
+        cfg = Config.from_json(f.read())
+    with open(os.path.join(directory, "vocab.json")) as f:
+        vocab = json.load(f)
+    model = SceneModel(cfg.model)
+    sd = torch.load(os.path.join(directory, "model.pt"), map_location="cpu",
+                    weights_only=True)
+    model.load_state_dict(sd, strict=True)
+    model = model.to(device=dev, dtype=cfg.model.torch_compute_dtype).eval()
+    return cfg, vocab, model

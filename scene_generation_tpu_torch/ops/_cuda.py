@@ -1,0 +1,104 @@
+"""Build the hand-written CUDA kernels in ``csrc/`` and load them.
+
+Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
+for ``sm_90a`` (Hopper) into its own shared library under ``build/kernels/``
+beside the package, at first use, and loaded with ``ctypes``: no PyTorch
+headers, so a build takes seconds. A library's file name carries a hash of
+its source and flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is. Nothing here runs when the module is imported.
+
+``LAUNCHES`` counts, per kernel, the launches the wrappers made in this
+process; a run resets it to show which kernels its path went through.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+KERNELS = ("stem", "compositor")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES: Dict[str, int] = collections.Counter()
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
+                           "the CUDA kernels cannot be built")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"libsg_{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
+    """Compile every named kernel whose library is missing, all at once.
+
+    Returns ``{name: {"seconds": s, "log": nvcc output}}`` for the kernels
+    it compiled; raises with nvcc's output if one fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in names:
+        target = library_path(name)
+        if target.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, target, time.perf_counter())
+    done = {}
+    failed = []
+    for name, (proc, tmp, target, t0) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{log}")
+            os.unlink(tmp)
+            continue
+        # Rename into place: a concurrent build never loads a partial file.
+        os.replace(tmp, target)
+        done[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return done
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            lib.sg_error_string.argtypes = [ctypes.c_int]
+            lib.sg_error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (``cudaGetLastError``)."""
+    if rc != 0:
+        msg = lib.sg_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

@@ -1,0 +1,81 @@
+"""The factored generator stem: wrapper of the CUDA kernel
+``csrc/stem.cu`` and its plain PyTorch version.
+
+    out[n,y,x,c] = sum_{dy,dx<7, o} w_pad[n, y+dy, x+dx, o] * g[n, dy, dx, o, c]
+
+It replaces the TPU kernel ``stem_pallas`` of the JAX package
+(``ops/pallas/stem.py``). ``stem`` launches the kernel for a CUDA tensor and
+runs ``stem_plain`` for a CPU tensor; it never falls back from one to the
+other.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from scene_generation_tpu_torch.ops import _cuda
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def stem_plain(weights: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``patches`` form: im2col of the O-channel field
+    (``F.unfold`` orders features (o, ky, kx), as
+    ``conv_general_dilated_patches`` does) and one per-image product."""
+    n, hp, wp, o = weights.shape
+    k, c = g.shape[1], g.shape[-1]
+    h, w = hp - k + 1, wp - k + 1
+    patches = F.unfold(weights.permute(0, 3, 1, 2), k)       # (N, O*k*k, HW)
+    g_okk = g.permute(0, 3, 1, 2, 4).reshape(n, o * k * k, c)
+    return torch.bmm(patches.transpose(1, 2), g_okk).reshape(n, h, w, c)
+
+
+def _launch(weights: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    if weights.dtype not in _DTYPE_CODES or g.dtype != weights.dtype:
+        raise TypeError(f"stem kernel takes float32 or bfloat16 of one dtype, "
+                        f"got {weights.dtype} and {g.dtype}")
+    if not (weights.is_contiguous() and g.is_contiguous()):
+        raise ValueError("stem kernel takes contiguous tensors")
+    if g.device != weights.device:
+        raise ValueError(f"weights on {weights.device}, g on {g.device}")
+    n, hp, wp, o = weights.shape
+    if g.ndim != 5 or g.shape[:4] != (n, 7, 7, o):
+        raise ValueError(f"g {tuple(g.shape)} does not match weights "
+                         f"{tuple(weights.shape)} (want (N, 7, 7, O, C))")
+    c = g.shape[4]
+    h, w = hp - 6, wp - 6
+    if h < 1 or w < 1:
+        raise ValueError(f"weights {tuple(weights.shape)} smaller than 7x7")
+    lib = _cuda.library("stem")
+    fn = lib.sg_stem
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty((n, h, w, c), dtype=weights.dtype,
+                      device=weights.device)
+    stream = torch.cuda.current_stream(weights.device).cuda_stream
+    rc = fn(weights.data_ptr(), g.data_ptr(), out.data_ptr(), n, h, w, o, c,
+            _DTYPE_CODES[weights.dtype], stream)
+    # A shape whose tiles exceed a block's shared memory is refused by the
+    # launch and raised here.
+    _cuda.check(lib, rc, f"stem kernel at W={w}, O={o}, C={c}")
+    _cuda.LAUNCHES["stem"] += 1
+    return out
+
+
+def stem(weights: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Fused factored stem, bias excluded.
+
+    Args:
+      weights: (N, H+6, W+6, O) reflect-padded per-object weight field.
+      g: (N, 7, 7, O, C) per-image taps, ``g = einsum(vecs, kernel)``.
+    Returns:
+      (N, H, W, C) in the inputs' dtype, accumulated in f32 on the card.
+    """
+    if weights.device.type == "cpu":
+        return stem_plain(weights, g)
+    if weights.device.type != "cuda":
+        raise ValueError(f"stem runs on cpu or cuda, not {weights.device}")
+    return _launch(weights, g)
