@@ -4,13 +4,19 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``scene_generation_tpu_torch/csrc``,
-holds each against its plain PyTorch version at the serving shapes, serves
-HTTP requests and a batch-16 forward through the default ``Config()`` (the
-factored stem, bf16), runs the dense-stem variant (the compositor kernel),
-compares the card with the CPU in f32, and times serving (CUDA events, then
-a ``torch.profiler`` breakdown of the device's time). Every phase
-prints one line; any failure raises and the exit code is non-zero. Without
-a CUDA device it exits non-zero before printing any result.
+holds each against its plain PyTorch version at the shapes of its path
+(the stem and the compositor at the serving shapes, the crop forward and
+backward at the train shapes), checks that the forward-only kernels refuse
+inputs that require grad, serves HTTP requests and a batch-16 forward
+through the default ``Config()`` (the factored stem, bf16), runs the
+dense-stem variant (the compositor kernel), compares the card with the CPU
+in f32, and times serving (CUDA events, then a ``torch.profiler``
+breakdown of the device's time). Then it trains: a few steps of the
+default ``Config()`` at batch 12 through the port's train loop (the crop
+kernels), timed and profiled, and one f32 train step on the card against
+the same step on the CPU. Every phase prints one line; any failure raises
+and the exit code is non-zero. Without a CUDA device it exits non-zero
+before printing any result.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -18,6 +24,7 @@ The last two lines are the kernels' JSON record and
 from __future__ import annotations
 
 import base64
+import contextlib
 import dataclasses
 import json
 import os
@@ -37,18 +44,26 @@ import torch
 from scene_generation_tpu_torch.config import Config
 from scene_generation_tpu_torch.convert import save_checkpoint
 from scene_generation_tpu_torch.data import synthetic_batch, synthetic_vocab
-from scene_generation_tpu_torch.entry import build_model
+from scene_generation_tpu_torch.entry import build_model, train_entry
 from scene_generation_tpu_torch.ops import _cuda
 from scene_generation_tpu_torch.ops.compositor import (composite,
                                                        composite_plain)
+from scene_generation_tpu_torch.ops.crop import (crop_bwd, crop_bwd_plain,
+                                                 crop_fwd, crop_fwd_plain)
 from scene_generation_tpu_torch.ops.layout import compositor_inputs
-from scene_generation_tpu_torch.ops.sampling import exact_f32_matmul
+from scene_generation_tpu_torch.ops.sampling import (crop_matrices,
+                                                      exact_f32_matmul)
 from scene_generation_tpu_torch.ops.stem import stem, stem_plain
 from scene_generation_tpu_torch.serve import Server, make_handler
+from scene_generation_tpu_torch.train import run as train_run
+from scene_generation_tpu_torch.trainer.step import Draws, draw, train_step
+from scene_generation_tpu_torch.trainer.train_state import create_train_state
 
 BATCH = 16
 SEED = 0
 TRACE_STEPS = 5
+TRAIN_BATCH = 12
+TRAIN_STEPS = 3
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them, HBM bandwidth.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -241,6 +256,157 @@ def check_compositor(cfg: Config) -> dict:
     say("kernel compositor probes", edge_boxes_max_err=edge_err,
         half_threshold_claimed=claimed)
     return rows
+
+
+def crop_case(cfg: Config, hh: int, dtype, seed=6):
+    """The crops' train shapes: 12 images of 128x128x3 in [-1, 1], the
+    synthetic batch's 9 boxes an image (slot 0 of image 0 made degenerate,
+    slots 1 and 2 of image 1 partly out of frame) and a random gradient."""
+    batch = synthetic_batch(cfg, seed=seed, batch_size=TRAIN_BATCH)
+    boxes = batch.boxes.copy()
+    boxes[0, 0] = [0.4, 0.4, 0.4, 0.7]
+    boxes[1, 1] = [-0.2, 0.5, 0.3, 1.3]
+    boxes[1, 2] = [0.8, -0.3, 1.4, 0.4]
+    boxes = torch.from_numpy(boxes).cuda()
+    h, w = cfg.model.image_size
+    gen = torch.Generator().manual_seed(seed)
+    imgs = torch.rand((TRAIN_BATCH, h, w, 3), generator=gen) * 2 - 1
+    u = torch.randn((TRAIN_BATCH, boxes.shape[1], hh, hh, 3), generator=gen)
+    ry, rx = crop_matrices(boxes.to(dtype), hh, hh, h, w)
+    return (imgs.to("cuda", dtype), ry.contiguous(), rx.contiguous(),
+            u.to("cuda", dtype), boxes)
+
+
+def grid_sample_inputs(imgs, boxes, u):
+    """``F.grid_sample``'s form of the same crop (bilinear, zero padding,
+    align_corners=True): each image repeated once per object, a grid per
+    object, the gradient channels-first."""
+    n, h, w, c = imgs.shape
+    o, hh, ww = u.shape[1:4]
+    x0, y0, x1, y1 = boxes.unbind(-1)
+    tx = torch.linspace(0, 1, ww, device=boxes.device)
+    ty = torch.linspace(0, 1, hh, device=boxes.device)
+    gx = 2 * (x0[..., None] + (x1 - x0)[..., None] * tx) - 1       # (N,O,WW)
+    gy = 2 * (y0[..., None] + (y1 - y0)[..., None] * ty) - 1       # (N,O,HH)
+    grid = torch.stack(torch.broadcast_tensors(gx[:, :, None, :],
+                                               gy[:, :, :, None]), -1)
+    inp = imgs.permute(0, 3, 1, 2).repeat_interleave(o, 0).contiguous()
+    grad = u.permute(0, 1, 4, 2, 3).reshape(n * o, c, hh, ww).contiguous()
+    return inp, grid.reshape(n * o, hh, ww, 2).contiguous(), grad
+
+
+def check_crop(cfg: Config) -> dict:
+    """Both crop kernels against their plain versions at the train shapes
+    (HH = WW = 64, the appearance crops, and 32, D_obj's), f32 and bf16;
+    the backward twice, bitwise equal; times against the plain versions,
+    the bound and ``F.grid_sample`` (f32)."""
+    rows = {}
+    for hh in (64, 32):
+        for dtype in (torch.float32, torch.bfloat16):
+            imgs, ry, rx, u, boxes = crop_case(cfg, hh, dtype)
+            got = crop_fwd(imgs, ry, rx)
+            grads = crop_bwd(imgs, ry, rx, u)
+            again = crop_bwd(imgs, ry, rx, u)
+            torch.cuda.synchronize()
+            want = crop_fwd_plain(imgs, ry, rx)
+            want_grads = crop_bwd_plain(imgs, ry, rx, u)
+            errs, tols = {}, {}
+            # f32: the same products summed in another order (1e-5 of the
+            # largest value); bf16: both round one f32 sum to bf16.
+            rel = 1e-5 if dtype == torch.float32 else 2 ** -7
+            for name, a, b in zip(("out", "d_img", "d_ry", "d_rx"),
+                                  (got, *grads), (want, *want_grads)):
+                a, b = a.float(), b.float()
+                check(bool(torch.isfinite(a).all()), f"crop {name} not finite")
+                errs[name] = float((a - b).abs().max())
+                tols[name] = rel * float(b.abs().max())
+                check(errs[name] <= tols[name],
+                      f"crop {name} {dtype} HH={hh}: max abs err "
+                      f"{errs[name]} > {tols[name]}")
+            check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                  f"crop backward {dtype} HH={hh} is not bitwise repeatable")
+            n, h, w, c = imgs.shape
+            o, ww = ry.shape[1], rx.shape[2]
+            per = n * o * c
+            fwd_flops = 2.0 * per * (hh * h * w + hh * w * ww)
+            # t1 = ry img, ub = u rx, d_ry = ub img^T, d_rx = u^T t1,
+            # d_img = ry^T ub: 2 HH W (2 WW + 3 H) per (n, o, c).
+            bwd_flops = 2.0 * per * hh * w * (2 * ww + 3 * h)
+            fwd_bound = bound(fwd_flops, nbytes(imgs, ry, rx, got), dtype)
+            bwd_bound = bound(bwd_flops, nbytes(imgs, ry, rx, u, *grads),
+                              dtype)
+            lib_fwd = lib_bwd = None
+            lib_note = "bf16 not timed"
+            if dtype == torch.float32:
+                inp, grid, grad = grid_sample_inputs(imgs, boxes, u)
+                gs = torch.nn.functional.grid_sample
+
+                def lib_f():
+                    return gs(inp, grid, mode="bilinear",
+                              padding_mode="zeros", align_corners=True)
+
+                def lib_b():
+                    return torch.ops.aten.grid_sampler_2d_backward(
+                        grad, inp, grid, 0, 0, True, [True, True])
+
+                lf = lib_f().reshape(n, o, c, hh, ww).permute(0, 1, 3, 4, 2)
+                lb = lib_b()[0].reshape(n, o, c, h, w).sum(1).permute(
+                    0, 2, 3, 1)
+                lib_err = (float((lf - want).abs().max()),
+                           float((lb - want_grads[0]).abs().max()))
+                # Sample coordinates are rounded differently (grid_sample
+                # unnormalizes [-1, 1]): ~1e-5 pixel.
+                agree = (lib_err[0] <= 1e-4 * float(want.abs().max()) and
+                         lib_err[1] <= 1e-4 * float(
+                             want_grads[0].abs().max()))
+                lib_note = {"max_abs_err_fwd": lib_err[0],
+                            "max_abs_err_d_img": lib_err[1],
+                            "agrees": agree}
+                if agree:
+                    lib_fwd = cuda_ms(lib_f)
+                    lib_bwd = cuda_ms(lib_b)
+            key = (hh, dtype)
+            rows[("crop_fwd",) + key] = dict(
+                max_abs_err=errs["out"], tol=tols["out"],
+                ms=cuda_ms(lambda: crop_fwd(imgs, ry, rx)),
+                plain_ms=cuda_ms(lambda: crop_fwd_plain(imgs, ry, rx)),
+                library_ms=lib_fwd, bound_ms=fwd_bound[0],
+                bound_by=fwd_bound[1])
+            rows[("crop_bwd",) + key] = dict(
+                max_abs_err=max(errs["d_img"], errs["d_ry"], errs["d_rx"]),
+                errs={k: errs[k] for k in ("d_img", "d_ry", "d_rx")},
+                tols={k: tols[k] for k in ("d_img", "d_ry", "d_rx")},
+                ms=cuda_ms(lambda: crop_bwd(imgs, ry, rx, u)),
+                plain_ms=cuda_ms(lambda: crop_bwd_plain(imgs, ry, rx, u)),
+                library_ms=lib_bwd, bound_ms=bwd_bound[0],
+                bound_by=bwd_bound[1])
+            for name in ("crop_fwd", "crop_bwd"):
+                say(f"kernel {name}", hh=hh, dtype=str(dtype),
+                    library=lib_note, **rows[(name,) + key])
+    return rows
+
+
+def check_forward_only_guards() -> None:
+    """The stem and compositor kernels are forward-only: their wrappers
+    refuse inputs that require grad instead of detaching the graph."""
+    w = torch.rand(1, 14, 14, 3, device="cuda", requires_grad=True)
+    g = torch.rand(1, 7, 7, 3, 4, device="cuda")
+    inputs = compositor_inputs(
+        torch.ones((1, 2, 4), device="cuda", requires_grad=True),
+        torch.tensor([0.1, 0.1, 0.9, 0.9], device="cuda").repeat(1, 2, 1),
+        torch.full((1, 2, 8, 8), 0.7, device="cuda"),
+        torch.ones((1, 2), device="cuda"), 32, 32)
+    refused = {}
+    for name, fn in (("stem", lambda: stem(w, g)),
+                     ("compositor", lambda: composite(*inputs))):
+        try:
+            fn()
+            refused[name] = False
+        except RuntimeError as e:
+            refused[name] = "forward-only" in str(e)
+        check(refused[name], f"the {name} kernel took inputs that require "
+              "grad")
+    say("forward-only guards", refused=refused)
 
 
 # --- phases 4-7: the model --------------------------------------------------
@@ -451,6 +617,33 @@ def card_vs_cpu(model_cpu) -> None:
     del model_gpu
 
 
+@contextlib.contextmanager
+def torch_default_tf32():
+    """PyTorch's default float32 flags (cuDNN convolutions in TF32, cuBLAS
+    matmuls in full f32), which the train CLI runs with; this script turns
+    TF32 off everywhere else for its comparisons."""
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    prev = [f.allow_tf32 for f in flags]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        for f, p in zip(flags, prev):
+            f.allow_tf32 = p
+
+
+def device_rows(prof) -> list:
+    """The profiler's device-side rows by time: kernels and copies, not
+    the device spans of ``record_function`` ranges (such as the
+    optimizer's step), which would count their kernels twice."""
+    from torch.autograd import DeviceType
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and device_ms(e) > 0
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=device_ms, reverse=True)
+
+
 def device_ms(event) -> float:
     us = getattr(event, "self_device_time_total", None)
     return (event.self_cuda_time_total if us is None else us) / 1e3
@@ -463,7 +656,6 @@ def serving_rate(ckpts: dict) -> dict:
     kernels' and copies' own times; the host-side aten rows would count
     them twice), its idle share over the forward, and the costliest
     kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     rates = {}
     for variant, ckpt in ckpts.items():
@@ -481,9 +673,7 @@ def serving_rate(ckpts: dict) -> dict:
             for _ in range(TRACE_STEPS):
                 fwd()
             torch.cuda.synchronize()
-        rows = sorted((e for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA
-                       and device_ms(e) > 0), key=device_ms, reverse=True)
+        rows = device_rows(prof)
         busy = sum(device_ms(e) for e in rows) / TRACE_STEPS
         rate = dict(ms=ms, img_per_s=BATCH / ms * 1e3)
         if rows:
@@ -504,6 +694,192 @@ def serving_rate(ckpts: dict) -> dict:
     say("serving rate", batch=BATCH, dtype="bfloat16",
         peak_memory_gib=peak_gb, **rates)
     return rates
+
+
+# --- phases 8-9: training ---------------------------------------------------
+
+def train_on_card() -> dict:
+    """Phase 8: the default ``Config()`` (generator f32, discriminators
+    and VGG bf16; PyTorch's default TF32 flags, as the train CLI runs) at
+    batch 12 through the port's train loop: TRAIN_STEPS steps, every loss
+    term finite each step, every parameter tree moved by the first, the
+    crop kernels launched; then ms/step by CUDA events (median after
+    warm-up), peak device memory, and one step under torch.profiler."""
+    fn, (state, batch) = train_entry(batch_size=TRAIN_BATCH, seed=SEED)
+    before = {name: [p.detach().clone() for p in m.parameters()]
+              for name, m, _ in state.trees()}
+    moved = {}
+
+    def on_step(i, metrics):
+        if i == 0:
+            for name, m, _ in state.trees():
+                flags = [not torch.equal(a, p)
+                         for a, p in zip(before[name], m.parameters())]
+                moved[name] = sum(flags) / len(flags)
+
+    _cuda.LAUNCHES.clear()
+    logged = train_run(state, TRAIN_STEPS, print_every=1, on_step=on_step)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    del before
+    check(len(logged) == TRAIN_STEPS, f"{len(logged)} of {TRAIN_STEPS} "
+          "steps logged")           # train_run raises on a non-finite term
+    # The box head's gradient is zero on a use_gt = 0 step, so a few
+    # leaves may stay; every tree must move almost all of its leaves.
+    check(all(v > 0.9 for v in moved.values()),
+          f"parameter trees barely moved by the first step: {moved}")
+    check(launches.get("crop_fwd", 0) >= 4 * TRAIN_STEPS
+          and launches.get("crop_bwd", 0) >= TRAIN_STEPS,
+          f"crop kernels not launched on every step: {launches}")
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: fn(state, batch), warmup=2, reps=6)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(state, batch)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    busy = sum(device_ms(e) for e in rows)
+    # The step's phases (train_step's record_function ranges): host time,
+    # and the span each took on the device.
+    phases = {}
+    for e in prof.key_averages():
+        if e.key.startswith("train_step/"):
+            ph = phases.setdefault(e.key.split("/", 1)[1], {})
+            if getattr(e, "is_user_annotation", False) and e.device_type != \
+                    torch.autograd.DeviceType.CPU:
+                ph["device_span_ms"] = (getattr(e, "device_time_total", None)
+                                        or e.cuda_time_total) / 1e3
+            else:
+                ph["host_ms"] = e.cpu_time_total / 1e3
+    out = dict(batch=TRAIN_BATCH, steps=TRAIN_STEPS, launches=launches,
+               leaves_moved=moved, ms_per_step=ms,
+               img_per_s=TRAIN_BATCH / ms * 1e3, peak_memory_gib=peak_gb,
+               last_losses=logged[-1])
+    if rows:
+        out.update(device_busy_ms=busy, idle_share=1 - busy / ms,
+                   kernel_kinds=len(rows), phases=phases,
+                   crop_kernels_ms=sum(device_ms(e) for e in rows
+                                       if "crop_" in e.key),
+                   top=[dict(name=e.key[:80], ms=device_ms(e),
+                             calls=e.count) for e in rows[:10]])
+    else:
+        out.update(device_busy_ms="not measured: the profiler saw no "
+                   "device time")
+    say("train", **out)
+    return out
+
+
+def train_card_vs_cpu() -> None:
+    """Phase 9: one train step of the full-width default ``Config()`` with
+    every dtype f32 (TF32 off), batch 2, from one seed-initialised state
+    on the card (kernels) and on the CPU (plain versions), with the same
+    draws (use_gt = 1). Compared: every loss term (1e-4 relative), the
+    first moment of every parameter of the four Adams (= 0.5 * grad), and
+    every batch-norm running statistic (1e-4 relative).
+
+    The moments' tolerance is per leaf 5e-2 of the leaf's max |m| plus
+    1e-4 of its tree's max (the second term for leaves whose gradient is
+    zero in exact arithmetic, such as a bias before an instance norm). In
+    f32 the two devices' last-bit differences move a few ReLU decisions of
+    the full-width generator, and each such flip moves every weight
+    gradient of its layer: a few percent of a leaf's scale. The same
+    generator's backward in f64 agrees within 1e-7 (``generator_f64``),
+    so the spread is rounding, not a different function."""
+    cfg = Config()
+    cfg = cfg.replace(discriminator=dataclasses.replace(
+        cfg.discriminator, compute_dtype="float32"))
+    t0 = time.perf_counter()
+    states = {dev: create_train_state(cfg, dev, seed=SEED, load_vgg=False)
+              for dev in ("cuda", "cpu")}
+    batch = synthetic_batch(cfg, seed=7, batch_size=2)
+    d = draw(states["cpu"])
+    draws = Draws(torch.tensor(1.0), d.mask_noise, d.pool_base)
+    metrics = {}
+    for dev, state in states.items():
+        t = time.perf_counter()
+        metrics[dev] = {k: v.cpu() for k, v in train_step(
+            state, batch, draws).items() if not k.startswith("_")}
+        metrics[dev + "_s"] = time.perf_counter() - t
+    loss_err = 0.0
+    for k, want in metrics["cpu"].items():
+        got = metrics["cuda"][k]
+        err = float((got - want).abs())
+        check(err <= 1e-4 * abs(float(want)) + 1e-6,
+              f"card vs cpu train loss {k}: {float(got)} vs {float(want)}")
+        loss_err = max(loss_err, err / max(abs(float(want)), 1e-6))
+    ratios, stat_err = [], 0.0
+    trees = zip(states["cuda"].trees(), states["cpu"].trees())
+    for (name, m_gpu, o_gpu), (_, m_cpu, o_cpu) in trees:
+        pairs = list(zip(m_gpu.parameters(), m_cpu.parameters()))
+        moms = [(o_gpu.state[a]["exp_avg"].cpu(), o_cpu.state[b]["exp_avg"])
+                for a, b in pairs]
+        tree_max = max(float(b.abs().max()) for _, b in moms)
+        for (pname, _), (a, b) in zip(m_cpu.named_parameters(), moms):
+            leaf_max = float(b.abs().max())
+            err = float((a - b).abs().max())
+            tol = 5e-2 * leaf_max + 1e-4 * tree_max
+            ratios.append((err / tol, f"{name}.{pname}", err, leaf_max,
+                           tree_max))
+        for (bname, a), b in zip(m_gpu.named_buffers(), m_cpu.buffers()):
+            err = float((a.cpu() - b).abs().max())
+            check(err <= 1e-4 * float(b.abs().max()) + 1e-7,
+                  f"card vs cpu batch statistic {name}.{bname}: {err}")
+            stat_err = max(stat_err, err)
+    ratios.sort(reverse=True)
+    say("train card vs cpu moments", worst=[
+        dict(leaf=k, err_over_tol=r, err=e, leaf_max=lm, tree_max=tm)
+        for r, k, e, lm, tm in ratios[:6]], worst_per_tree={
+            tree: next(r for r, k, *_ in ratios if k.startswith(tree + "."))
+            for tree in ("g", "d_img", "d_obj", "d_mask")})
+    check(ratios[0][0] <= 1.0, f"card vs cpu first moment {ratios[0][1]}: "
+          f"{ratios[0][2]} over its tolerance")
+    moment_ratio, n_leaves = ratios[0][0], len(ratios)
+    say("train card vs cpu", batch=2, leaves=n_leaves,
+        max_rel_loss_err=loss_err, max_moment_err_over_tol=moment_ratio,
+        max_batch_stat_err=stat_err, cuda_step_s=metrics["cuda_s"],
+        cpu_step_s=metrics["cpu_s"], seconds=time.perf_counter() - t0)
+    del states
+
+
+def generator_f64() -> None:
+    """Phase 9b: the train-mode generator's backward (the factored stem's
+    ``patches`` form, convs, instance norms, the transpose convs) in f64
+    on the card and on the CPU, from one set of weights and one
+    cotangent: every parameter's gradient within 1e-7 of its scale (or
+    of 1e-6 of the largest gradient, for a bias before an instance norm,
+    whose gradient is zero in exact arithmetic): five orders of magnitude
+    below the f32 spread that ``train_card_vs_cpu`` allows."""
+    from scene_generation_tpu_torch.models.generators import GlobalGenerator
+    from scene_generation_tpu_torch.models.layers import init_weights
+    mc = Config().model
+    gen = torch.Generator().manual_seed(8)
+    h, w = mc.image_size
+    o = Config().data.max_objs
+    lw = torch.rand((2, o, h, w), generator=gen, dtype=torch.float64)
+    vecs = torch.randn((2, o, mc.layout_nc), generator=gen,
+                       dtype=torch.float64)
+    cot = torch.randn((2, h, w, mc.output_nc), generator=gen,
+                      dtype=torch.float64)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        g = init_weights(GlobalGenerator(mc.layout_nc, mc.output_nc, mc.ngf,
+                                         mc.n_downsample_global,
+                                         mc.n_blocks_global), SEED)
+        g = g.to(dev, torch.float64).train()
+        y = g(weights=lw.to(dev), vecs=vecs.to(dev))
+        grads[dev] = [t.cpu() for t in torch.autograd.grad(
+            (y * cot.to(dev)).sum(), list(g.parameters()))]
+    top = max(float(b.abs().max()) for b in grads["cpu"])
+    worst = max(float((a - b).abs().max())
+                / max(float(b.abs().max()), 1e-6 * top)
+                for a, b in zip(grads["cuda"], grads["cpu"]))
+    check(worst <= 1e-7, f"f64 generator gradients differ: {worst}")
+    say("generator f64 card vs cpu", max_rel_grad_err=worst,
+        leaves=len(grads["cpu"]))
 
 
 def main() -> int:
@@ -531,6 +907,8 @@ def main() -> int:
     cfg = with_model(Config(), compute_dtype="bfloat16")
     stem_rows = check_stem(cfg)
     comp_rows = check_compositor(cfg)
+    crop_rows = check_crop(Config())
+    check_forward_only_guards()
 
     model = build_model(Config(), "cuda", SEED)
     spread = spread_mask_head(model)
@@ -554,6 +932,11 @@ def main() -> int:
         dense_launches = dense_forward(ckpts["dense"])
         card_vs_cpu(model_cpu)
         rates = serving_rate(ckpts)
+    del model_cpu
+    with torch_default_tf32():
+        train = train_on_card()
+    train_card_vs_cpu()
+    generator_f64()
 
     def row(name, src, replaces, launches, r):
         return dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -569,9 +952,21 @@ def main() -> int:
         row("compositor", "scene_generation_tpu_torch/csrc/compositor.cu",
             "scene_generation_tpu/ops/pallas/compositor.py:48",
             dense_launches["compositor"], comp_rows[torch.bfloat16]),
+        # D_obj's crops (3 of the 4 forward launches a step; f32, as the
+        # train step runs them); the 64 px appearance crops are printed
+        # above.
+        row("crop_fwd", "scene_generation_tpu_torch/csrc/crop.cu",
+            "scene_generation_tpu/ops/pallas/crop.py:88",
+            train["launches"]["crop_fwd"],
+            crop_rows[("crop_fwd", 32, torch.float32)]),
+        row("crop_bwd", "scene_generation_tpu_torch/csrc/crop.cu",
+            "scene_generation_tpu/ops/pallas/crop.py:126",
+            train["launches"]["crop_bwd"],
+            crop_rows[("crop_bwd", 32, torch.float32)]),
     ]
     say("done", seconds=time.perf_counter() - t0,
-        img_per_s={k: v["img_per_s"] for k, v in rates.items()})
+        img_per_s={k: v["img_per_s"] for k, v in rates.items()},
+        train_ms_per_step=train["ms_per_step"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -144,7 +144,13 @@ class DiscriminatorConfig:
     d_activation: str = "leakyrelu-0.2"
     d_obj_arch: str = "C4-64-2,C4-128-2,C4-256-2"
     crop_size: int = 32
+    # Compute dtype of the three discriminators and the VGG features
+    # (parameters stay f32; losses reduce in f32).
     compute_dtype: str = "bfloat16"
+
+    @property
+    def torch_compute_dtype(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
 
 
 @dataclass(frozen=True)

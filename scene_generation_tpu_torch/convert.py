@@ -3,7 +3,12 @@
 ``state_dict_from_jax`` maps the JAX package's ``SceneModel`` variables
 (``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy arrays,
 the output of ``jax.device_get``) onto this package's ``SceneModel``
-state_dict:
+state_dict; its siblings do the same for the rest of the JAX train state
+(``d_img_state_dict_from_jax``, ``d_obj_state_dict_from_jax``,
+``d_mask_state_dict_from_jax``, ``vgg_state_dict_from_jax``,
+``pool_from_jax``), so that both packages can step from one state. Every
+map is linear in the leaves, so it carries an optimizer's moment trees
+(which have the parameters' structure) across as well:
 
   Dense           kernel (in, out)        -> weight (out, in)
   Conv            kernel HWIO             -> weight OIHW
@@ -35,8 +40,10 @@ import numpy as np
 import torch
 
 from scene_generation_tpu_torch import resolve_device
-from scene_generation_tpu_torch.config import Config, ModelConfig
+from scene_generation_tpu_torch.config import (Config, DiscriminatorConfig,
+                                               ModelConfig)
 from scene_generation_tpu_torch.models.model import SceneModel
+from scene_generation_tpu_torch.trainer.pools import VectorPool
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str,
@@ -123,6 +130,26 @@ def _gconv(v: _Vars, j: str, p: str, sd: Dict, bn: bool) -> None:
         _mlp(v, f"{j}/{net}", f"{p}.{net}", sd, 2, 2 if bn else 0)
 
 
+def _collect(variables: Mapping[str, Any]) -> _Vars:
+    flat: Dict[str, np.ndarray] = {}
+    for coll in ("params", "batch_stats"):
+        _flatten(variables.get(coll, {}), coll, flat)
+    unknown = sorted(set(variables) - {"params", "batch_stats"})
+    if unknown:
+        raise ValueError(f"unknown variable collections {unknown}")
+    return _Vars(flat)
+
+
+def _cnn(v: _Vars, j: str, p: str, sd: Dict, arch: str,
+         normalization: str) -> None:
+    """A conv-only ``CNN`` (``CNN_0`` in flax) onto ``models.layers.CNN``."""
+    n_convs = len([s for s in arch.split(",") if not s.startswith("I")])
+    for i in range(n_convs):
+        _conv(v, f"{j}/Conv_{i}", f"{p}.convs.{i}", sd)
+        if i and normalization == "batch":
+            _bn(v, f"{j}/MaskedBatchNorm_{i - 1}", f"{p}.bns.{i - 1}", sd)
+
+
 def state_dict_from_jax(variables: Mapping[str, Any],
                         cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """The JAX ``SceneModel`` variables -> this package's state_dict (f32).
@@ -131,13 +158,7 @@ def state_dict_from_jax(variables: Mapping[str, Any],
     encoder's included (as a train-mode ``init`` or a trained checkpoint
     does).
     """
-    flat: Dict[str, np.ndarray] = {}
-    for coll in ("params", "batch_stats"):
-        _flatten(variables.get(coll, {}), coll, flat)
-    unknown = sorted(set(variables) - {"params", "batch_stats"})
-    if unknown:
-        raise ValueError(f"unknown variable collections {unknown}")
-    v = _Vars(flat)
+    v = _collect(variables)
     sd: Dict[str, torch.Tensor] = {}
     bn = cfg.mlp_normalization == "batch"
     n_bn = 2 if bn else 0
@@ -168,14 +189,8 @@ def state_dict_from_jax(variables: Mapping[str, Any],
         _bn(v, f"mask_net/MaskedBatchNorm_{i}", f"mask_net.bns.{i}", sd)
     _conv(v, f"mask_net/Conv_{n_up}", "mask_net.out", sd)
 
-    n_convs = len([s for s in cfg.appearance_arch.split(",")
-                   if not s.startswith("I")])
-    for i in range(n_convs):
-        _conv(v, f"image_encoder/CNN_0/Conv_{i}",
-              f"image_encoder.cnn.convs.{i}", sd)
-        if i and cfg.appearance_normalization == "batch":
-            _bn(v, f"image_encoder/CNN_0/MaskedBatchNorm_{i - 1}",
-                f"image_encoder.cnn.bns.{i - 1}", sd)
+    _cnn(v, "image_encoder/CNN_0", "image_encoder.cnn", sd,
+         cfg.appearance_arch, cfg.appearance_normalization)
     _dense(v, "image_encoder/Dense_0", "image_encoder.dense", sd)
 
     g, nd = "layout_to_image", cfg.n_downsample_global
@@ -200,6 +215,67 @@ def state_dict_from_jax(variables: Mapping[str, Any],
     _conv(v, f"{g}/Conv_{nd + 1}", f"{g}.head", sd)
     v.finish()
     return sd
+
+
+def _multiscale(params: Mapping[str, Any], num_d: int, n_layers: int,
+                names) -> Dict[str, torch.Tensor]:
+    v = _collect({"params": params})
+    sd: Dict[str, torch.Tensor] = {}
+    for s in range(num_d):
+        for j, name in enumerate(names(n_layers)):
+            _conv(v, f"scale_{s}/Conv_{j}", f"scales.scale_{s}.{name}", sd)
+    v.finish()
+    return sd
+
+
+def d_img_state_dict_from_jax(params: Mapping[str, Any],
+                              dc: DiscriminatorConfig
+                              ) -> Dict[str, torch.Tensor]:
+    """JAX ``MultiscaleDiscriminator`` params -> the port's D_img."""
+    return _multiscale(params, dc.num_d, dc.n_layers_d,
+                       lambda n: [f"convs.{j}" for j in range(n + 2)])
+
+
+def d_mask_state_dict_from_jax(params: Mapping[str, Any],
+                               dc: DiscriminatorConfig
+                               ) -> Dict[str, torch.Tensor]:
+    """JAX ``MultiscaleMaskDiscriminator`` params -> the port's D_mask."""
+    return _multiscale(params, dc.num_d_mask, dc.n_layers_d_mask,
+                       lambda n: [f"downs.{j}" for j in range(n)]
+                       + ["penultimate", "head"])
+
+
+def d_obj_state_dict_from_jax(variables: Mapping[str, Any],
+                              dc: DiscriminatorConfig
+                              ) -> Dict[str, torch.Tensor]:
+    """JAX ``AcCropDiscriminator`` variables (params + batch_stats) -> the
+    port's D_obj."""
+    v = _collect(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    _cnn(v, "discriminator/CNN_0", "discriminator.cnn", sd, dc.d_obj_arch,
+         dc.d_normalization)
+    for j, name in enumerate(("dense", "real", "obj")):
+        _dense(v, f"discriminator/Dense_{j}", f"discriminator.{name}", sd)
+    v.finish()
+    return sd
+
+
+def vgg_state_dict_from_jax(params: Mapping[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """JAX ``Vgg19Features`` params -> the port's."""
+    v = _collect({"params": params})
+    sd: Dict[str, torch.Tensor] = {}
+    for name in params:
+        _conv(v, name, f"convs.{name}", sd)
+    v.finish()
+    return sd
+
+
+def pool_from_jax(pool: Any, device=None) -> VectorPool:
+    """The JAX ``VectorPoolState`` (vecs, counts) -> the port's pool."""
+    vecs, counts = pool
+    return VectorPool(torch.from_numpy(np.array(vecs, np.float32)).to(device),
+                      torch.from_numpy(np.array(counts, np.int64)).to(device))
 
 
 def save_checkpoint(directory: str, model: SceneModel, cfg: Config,

@@ -1,9 +1,12 @@
 """``entry()``: the flagship test-mode forward (scene graph -> 128x128
 image) at the full default ``Config()``, with seed-initialised weights,
-shaped like the JAX package's ``__graft_entry__.entry()``.
+shaped like the JAX package's ``__graft_entry__.entry()``; ``train_entry()``:
+one adversarial train step of the same config.
 
     fn, args = entry()
     imgs = fn(*args)          # (2, 128, 128, 3) float32 on the card
+    fn, args = train_entry()
+    metrics = fn(*args)       # one G + D_mask + D_obj + D_img update
 
 Run ``python -m scene_generation_tpu_torch.entry`` for a one-line check.
 """
@@ -17,6 +20,8 @@ from scene_generation_tpu_torch import resolve_device
 from scene_generation_tpu_torch.config import Config
 from scene_generation_tpu_torch.data.synthetic import synthetic_batch
 from scene_generation_tpu_torch.models import SceneModel, init_weights
+from scene_generation_tpu_torch.trainer.step import train_step
+from scene_generation_tpu_torch.trainer.train_state import create_train_state
 
 
 def build_model(cfg: Config, device: Optional[str] = None,
@@ -60,6 +65,20 @@ def entry(device: Optional[str] = None, batch_size: int = 2,
                      features=features, features_mask=features_mask).imgs_pred
 
     return fn, args
+
+
+def train_entry(device: Optional[str] = None,
+                batch_size: Optional[int] = None,
+                seed: int = 0) -> Tuple[Callable, tuple]:
+    """``(fn, args)``: ``fn(*args)`` runs one train step of the default
+    ``Config()`` (batch 12 unless ``batch_size``) on a synthetic batch and
+    returns its metrics. ``args`` = (state, batch): the seed-initialised
+    train state on ``device`` (CUDA unless ``device="cpu"``) and the numpy
+    batch; each call updates the state in place."""
+    cfg = Config()
+    state = create_train_state(cfg, device, seed=seed)
+    batch = synthetic_batch(cfg, seed=seed, batch_size=batch_size)
+    return train_step, (state, batch)
 
 
 if __name__ == "__main__":

@@ -11,9 +11,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from scene_generation_tpu_torch.models.layers import (
-    CNN, MaskedBatchNorm, ResnetBlock, conv_init_gan_, instance_norm,
-    linear_init_, reflect_pad_2d, relu)
-from scene_generation_tpu_torch.ops.stem import stem
+    CNN, MaskedBatchNorm, ResnetBlock, conv_init_gan_, global_avg_pool,
+    instance_norm, linear_init_, reflect_pad_2d, relu)
+from scene_generation_tpu_torch.ops.stem import stem, stem_patches
 
 
 class MaskNet(nn.Module):
@@ -48,15 +48,14 @@ class MaskNet(nn.Module):
 class AppearanceEncoder(nn.Module):
     """Object-crop appearance encoder: conv-only CNN ('valid' padding,
     masked BN, leakyrelu), global average pool, dense to ``vecs_size``.
-    Its weights are part of a checkpoint; the crops it reads come with
-    the training slice of the port."""
+    It reads the ground-truth crops of the train-mode forward."""
 
     def __init__(self, arch: str, vecs_size: int,
                  normalization: str = "batch",
                  activation: str = "leakyrelu-0.2"):
         super().__init__()
         self.cnn = CNN(arch, 3, normalization=normalization,
-                       activation=activation)
+                       activation=activation, pooling="avg")
         self.dense = nn.Linear(self.cnn.out_channels, vecs_size)
 
     def init_params(self, gen: torch.Generator) -> None:
@@ -66,7 +65,7 @@ class AppearanceEncoder(nn.Module):
                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, S, S, 3) NHWC crops -> (B, vecs_size)."""
         h = self.cnn(crops.permute(0, 3, 1, 2), weights)
-        return self.dense(h.mean(dim=(2, 3)))
+        return self.dense(global_avg_pool(h))
 
 
 class StemConv(nn.Module):
@@ -76,8 +75,10 @@ class StemConv(nn.Module):
     ``layout[n,y,x,:] = sum_o w[n,y,x,o] * F[n,o,:]``, and the conv is
     linear, so ``conv(layout) = sum_{taps,o} w_pad * g`` with
     ``g[n,dy,dx,o,c] = sum_d F[n,o,d] * kernel[c,d,dy,dx]``: a 7x7
-    contraction over O channels instead of D. That contraction is the stem
-    kernel (``ops/stem.py``). Both paths share one ``weight``/``bias``.
+    contraction over O channels instead of D. In test mode that contraction
+    is the stem kernel (``ops/stem.py``, forward-only); in train mode it is
+    the differentiable ``patches`` form, on every device, as in the JAX
+    package. Both paths share one ``weight``/``bias``.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 7):
@@ -97,7 +98,8 @@ class StemConv(nn.Module):
         vectors -> (N, H, W, C)."""
         g = torch.einsum("nod,cdhw->nhwoc", vecs,
                          self.conv.weight.to(vecs.dtype)).contiguous()
-        return stem(weights, g) + self.conv.bias.to(vecs.dtype)
+        contract = stem_patches if self.training else stem
+        return contract(weights, g) + self.conv.bias.to(vecs.dtype)
 
 
 class GlobalGenerator(nn.Module):

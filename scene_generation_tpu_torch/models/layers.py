@@ -87,6 +87,43 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return F.instance_norm(x, eps=eps)
 
 
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, C)."""
+    return x.mean(dim=(2, 3))
+
+
+def avg_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """AvgPool2d(3, stride=2, padding=1, count_include_pad=False) on NCHW:
+    the multiscale discriminators' downsampler between scales.
+
+    The input is made contiguous first: for a channels-last input (the
+    discriminators' NHWC images seen as NCHW) the CUDA backward of
+    ``avg_pool2d`` with ``count_include_pad=False`` returned wrong
+    gradients (torch 2.11 on the H100, against the CPU and against a
+    contiguous input; tests/test_torch_kernels_cuda.py holds it)."""
+    return F.avg_pool2d(x.contiguous(), 3, stride=2, padding=1,
+                        count_include_pad=False)
+
+
+def conv_in(conv: nn.Conv2d, x: torch.Tensor,
+            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``conv(x)`` computed in ``dtype``, as flax's ``dtype=`` does: input,
+    weight and bias cast to it (the f32 parameters stay f32 and get f32
+    gradients). ``None`` computes in the parameters' dtype."""
+    if dtype is None:
+        return conv(x)
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
+                    conv.stride, conv.padding)
+
+
+def linear_in(lin: nn.Linear, x: torch.Tensor,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``lin(x)`` computed in ``dtype`` (see ``conv_in``)."""
+    if dtype is None:
+        return lin(x)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm with optional per-row weights for padded batches.
 
@@ -208,15 +245,22 @@ class ResnetBlock(nn.Module):
 
 class CNN(nn.Module):
     """``build_cnn`` for conv-only archs with 'valid' padding, such as the
-    appearance encoder's 'C4-64-2,C4-128-2,C4-256-2': each 'CK-X[-S]' is a
-    KxK conv with X channels and stride S; every conv but the first is
-    preceded by normalization and activation. Convs are lecun-normal
-    initialised (flax's default)."""
+    appearance encoder's and D_obj's 'C4-64-2,C4-128-2,C4-256-2': each
+    'CK-X[-S]' is a KxK conv with X channels and stride S; every conv but
+    the first is preceded by normalization and activation. Convs are
+    lecun-normal initialised (flax's default). ``pooling`` is the kind of
+    the DSL's 'P' layers, which are not ported yet (no default arch has
+    one); ``dtype`` is the convs' compute dtype (``conv_in``)."""
 
     def __init__(self, arch: str, in_channels: int,
                  normalization: str = "batch", activation: str = "relu",
-                 padding: str = "valid"):
+                 padding: str = "valid", pooling: str = "max",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        if pooling not in ("max", "avg"):
+            raise ValueError(f"unknown pooling '{pooling}'")
+        self.pooling = pooling
+        self.dtype = dtype
         specs = [s for s in arch.split(",") if not s.startswith("I")]
         if any(s[0] != "C" for s in specs) or padding != "valid":
             raise NotImplementedError(
@@ -253,5 +297,5 @@ class CNN(nn.Module):
                 elif self.normalization == "instance":
                     x = instance_norm(x)
                 x = self.act(x)
-            x = conv(x)
+            x = conv_in(conv, x, self.dtype)
         return x

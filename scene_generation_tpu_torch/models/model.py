@@ -1,8 +1,11 @@
-"""The generator umbrella model, test mode (port of the JAX package's
+"""The generator umbrella model (port of the JAX package's
 ``models/model.py``).
 
-embeddings -> scene-graph conv stack -> box MLP / mask net / repr MLP with
-the appearance-feature override -> occlusion layout -> pix2pixHD generator.
+embeddings -> scene-graph conv stack -> box MLP / mask net / appearance
+vectors (encoded ground-truth crops, or repr MLP with the feature override)
+-> layout -> pix2pixHD generator. ``model.train()`` is the training forward
+(summed layouts of the ground truth, crops of the ground-truth image),
+``model.eval()`` the test-mode forward (occlusion layout) that serving runs.
 
 Padded-batch contract:
   objs         (N, O)    int class ids (0 also pads; see obj_mask)
@@ -11,8 +14,10 @@ Padded-batch contract:
   obj_mask     (N, O)    1.0 for real object slots
   triple_mask  (N, T)    1.0 for real triples
 
-The model computes in the dtype of its parameters (``model.to(dtype)``);
-boxes, masks and images come out in float32, as in the JAX package.
+The model computes in the dtype of its parameters: serving stores them in
+the compute dtype (``model.to(dtype)``), training keeps them f32 (see
+``trainer/train_state.py``). Boxes, masks and images come out in float32,
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -30,23 +35,27 @@ from scene_generation_tpu_torch.models.graph import (GraphTripleConv,
                                                      GraphTripleConvNet)
 from scene_generation_tpu_torch.models.layers import (MLP, linear_init_,
                                                       normal_)
+from scene_generation_tpu_torch.ops.crop import crop_bbox_batch
+from scene_generation_tpu_torch.ops.images import wire_to_float
 from scene_generation_tpu_torch.ops.layout import (composite_layout,
+                                                   masks_to_layout,
                                                    masks_to_layout_weights)
+from scene_generation_tpu_torch.ops.sampling import exact_f32_matmul
 
 
 class ModelOutput(NamedTuple):
     imgs_pred: torch.Tensor                # (N, H, W, 3)
     boxes_pred: torch.Tensor               # (N, O, 4)
     masks_pred: torch.Tensor               # (N, O, M, M)
-    layout: Optional[torch.Tensor]         # GT layout (train slice): None
+    layout: Optional[torch.Tensor]         # GT layout (train; None in test)
     layout_pred: Optional[torch.Tensor]    # (N, H, W, D) predicted layout
-    layout_wrong: Optional[torch.Tensor]   # train slice: None
+    layout_wrong: Optional[torch.Tensor]   # wrong-texture layout (train)
     obj_repr: torch.Tensor                 # (N, O, rep_size)
     cls_vecs: torch.Tensor                 # (N, O, Ccls) layout class part
 
 
 class SceneModel(nn.Module):
-    """The reference ``Model`` on the padded contract, test mode only."""
+    """The reference ``Model`` on the padded contract."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -97,34 +106,33 @@ class SceneModel(nn.Module):
     def forward(self, objs: torch.Tensor, triples: torch.Tensor,
                 attributes: torch.Tensor, obj_mask: torch.Tensor,
                 triple_mask: torch.Tensor, mask_noise: torch.Tensor,
+                imgs: Optional[torch.Tensor] = None,
                 boxes_gt: Optional[torch.Tensor] = None,
                 masks_gt: Optional[torch.Tensor] = None,
                 use_gt_box: bool = False,
                 features: Optional[torch.Tensor] = None,
                 features_mask: Optional[torch.Tensor] = None,
+                wrong_rep: Optional[torch.Tensor] = None,
                 return_layout: bool = False) -> ModelOutput:
-        """Test-mode forward.
+        """Train-mode (``model.train()``) or test-mode forward.
 
         Args beyond the padded contract:
           mask_noise: (mask_noise_dim,), ONE noise vector shared by every
             object in the batch (the reference's quirk).
+          imgs: (N, H, W, 3) ground-truth images, uint8 wire format or
+            float; with ``features=None`` each object's appearance vector
+            encodes its crop of them (``object_size``).
           boxes_gt / use_gt_box: composite with the given boxes instead of
-            the predicted ones.
-          masks_gt: composite with the given masks instead of the predicted.
+            the predicted ones (training always composites ``boxes_gt``).
+          masks_gt: composite with the given masks instead of the predicted
+            (training: the ground-truth layout).
           features / features_mask: (N, O, rep_size) appearance vectors and
             which rows they override.
+          wrong_rep: (N, O, rep_size) appearance vectors of the
+            wrong-texture layout (training; default: the objects' own).
           return_layout: also materialize the (N, H, W, D) layout on the
-            factored path (the dense path always builds it).
+            factored test-mode path (the other paths always build it).
         """
-        if self.training:
-            raise NotImplementedError(
-                "SceneModel runs in test mode (model.eval()); the training "
-                "forward comes with the port's train slice")
-        if features is None:
-            raise NotImplementedError(
-                "features=None encodes ground-truth crops, which needs the "
-                "crop kernel and the appearance encoder path of the port's "
-                "train slice; pass features (and features_mask)")
         cfg = self.cfg
         dtype = self.obj_embeddings.weight.dtype
         n, o = objs.shape
@@ -136,12 +144,20 @@ class SceneModel(nn.Module):
         mask_vecs = torch.cat([obj_vecs, noise], dim=-1)
         flat_w = obj_mask.reshape(n * o)
 
-        obj_repr = self.repr_net(mask_vecs.reshape(n * o, -1),
-                                 flat_w).reshape(n, o, cfg.rep_size)
-        if features_mask is None:
-            features_mask = torch.ones((n, o), dtype=dtype, device=objs.device)
-        fm = features_mask[..., None].to(dtype)
-        obj_repr = fm * features.to(dtype) + (1 - fm) * obj_repr
+        if features is None:
+            # Encode the ground-truth crops (the crop kernels on the card).
+            s = cfg.object_size
+            crops = crop_bbox_batch(wire_to_float(imgs).to(dtype), boxes_gt, s)
+            obj_repr = self.encode_crops(crops.reshape(n * o, s, s, 3),
+                                         flat_w).reshape(n, o, cfg.rep_size)
+        else:
+            obj_repr = self.repr_net(mask_vecs.reshape(n * o, -1),
+                                     flat_w).reshape(n, o, cfg.rep_size)
+            if features_mask is None:
+                features_mask = torch.ones((n, o), dtype=dtype,
+                                           device=objs.device)
+            fm = features_mask[..., None].to(dtype)
+            obj_repr = fm * features.to(dtype) + (1 - fm) * obj_repr
 
         if cfg.layout_embed_dim:
             cls_vecs = self.class_embed(objs.long())
@@ -155,6 +171,10 @@ class SceneModel(nn.Module):
                                     flat_w)
         masks_pred = torch.sigmoid(mask_logits.float()).reshape(
             n, o, cfg.mask_size, cfg.mask_size)
+        if self.training:
+            return self._train_layouts(
+                boxes_pred, masks_pred, obj_repr, cls_vecs, layout_vecs,
+                boxes_gt, masks_gt, obj_mask, wrong_rep)
 
         boxes = (boxes_gt if use_gt_box else boxes_pred).to(dtype)
         masks = (masks_gt if masks_gt is not None else masks_pred).to(dtype)
@@ -172,6 +192,38 @@ class SceneModel(nn.Module):
             imgs_pred.float(), boxes_pred, masks_pred, None,
             None if layout_pred is None else layout_pred.float(), None,
             obj_repr.float(), cls_vecs.float())
+
+    def _train_layouts(self, boxes_pred, masks_pred, obj_repr, cls_vecs,
+                       layout_vecs, boxes_gt, masks_gt, obj_mask,
+                       wrong_rep) -> ModelOutput:
+        """The train-mode tail: the image comes from the ground-truth
+        layout (summed, not occluded); the predicted boxes and masks train
+        only through their own losses. The factored stem contracts the GT
+        layout's rank-O weight field (its differentiable ``patches`` form),
+        and the GT layout still materializes for D_img."""
+        cfg = self.cfg
+        h, w = cfg.image_size
+        if cfg.factored_stem:
+            lw_gt = masks_to_layout_weights(layout_vecs, boxes_gt, masks_gt,
+                                            obj_mask, h, w)
+            with exact_f32_matmul():
+                layout = torch.einsum("nohw,nod->nhwd", lw_gt, layout_vecs)
+            imgs_pred = self.layout_to_image(weights=lw_gt, vecs=layout_vecs)
+        else:
+            layout = masks_to_layout(layout_vecs, boxes_gt, masks_gt,
+                                     obj_mask, h, w)
+            imgs_pred = self.layout_to_image(layout)
+        layout_pred = masks_to_layout(layout_vecs, boxes_gt, masks_pred,
+                                      obj_mask, h, w)
+        if wrong_rep is None:
+            wrong_rep = obj_repr
+        wrong_vecs = torch.cat([cls_vecs, wrong_rep.to(obj_repr.dtype)], -1)
+        layout_wrong = masks_to_layout(wrong_vecs, boxes_gt, masks_gt,
+                                       obj_mask, h, w)
+        return ModelOutput(imgs_pred.float(), boxes_pred, masks_pred,
+                           layout.float(), layout_pred.float(),
+                           layout_wrong.float(), obj_repr.float(),
+                           cls_vecs.float())
 
     def encode_crops(self, crops_flat: torch.Tensor,
                      weights: Optional[torch.Tensor] = None) -> torch.Tensor:

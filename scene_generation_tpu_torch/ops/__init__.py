@@ -1,3 +1,3 @@
 """Tensor ops of the port: sampling matrices, scene-graph gather/pool, the
-layout compositor and the generator stem (the last two with CUDA kernels
-in ``csrc/``, built by ``_cuda``)."""
+layout compositor, the generator stem and the ROI crop (the last three
+with CUDA kernels in ``csrc/``, built by ``_cuda``)."""

@@ -54,6 +54,9 @@ def _launch(vecs, ry, rx, masks) -> torch.Tensor:
         raise ValueError("compositor kernel takes contiguous tensors")
     if any(t.device != vecs.device for t in ts):
         raise ValueError("compositor inputs lie on different devices")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError("the compositor kernel is forward-only (test "
+                           "mode): its output would carry no gradient")
     n, o, d = vecs.shape
     h, m = ry.shape[2], ry.shape[3]
     w = rx.shape[2]

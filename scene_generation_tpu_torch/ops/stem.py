@@ -6,7 +6,9 @@
 It replaces the TPU kernel ``stem_pallas`` of the JAX package
 (``ops/pallas/stem.py``). ``stem`` launches the kernel for a CUDA tensor and
 runs ``stem_plain`` for a CPU tensor; it never falls back from one to the
-other.
+other. The kernel is forward-only (test mode, serving): its wrapper raises
+rather than detach a graph. Training runs ``stem_patches``, the JAX
+package's differentiable ``patches`` form, on every device.
 """
 from __future__ import annotations
 
@@ -20,16 +22,22 @@ from scene_generation_tpu_torch.ops import _cuda
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def stem_plain(weights: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """The JAX package's ``patches`` form: im2col of the O-channel field
-    (``F.unfold`` orders features (o, ky, kx), as
-    ``conv_general_dilated_patches`` does) and one per-image product."""
+def stem_patches(weights: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``patches`` form, the train path (differentiable):
+    im2col of the O-channel field (``F.unfold`` orders features
+    (o, ky, kx), as ``conv_general_dilated_patches`` does) and one
+    per-image product."""
     n, hp, wp, o = weights.shape
     k, c = g.shape[1], g.shape[-1]
     h, w = hp - k + 1, wp - k + 1
     patches = F.unfold(weights.permute(0, 3, 1, 2), k)       # (N, O*k*k, HW)
     g_okk = g.permute(0, 3, 1, 2, 4).reshape(n, o * k * k, c)
     return torch.bmm(patches.transpose(1, 2), g_okk).reshape(n, h, w, c)
+
+
+def stem_plain(weights: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain version: the ``patches`` form."""
+    return stem_patches(weights, g)
 
 
 def _launch(weights: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -40,6 +48,10 @@ def _launch(weights: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         raise ValueError("stem kernel takes contiguous tensors")
     if g.device != weights.device:
         raise ValueError(f"weights on {weights.device}, g on {g.device}")
+    if torch.is_grad_enabled() and (weights.requires_grad or g.requires_grad):
+        raise RuntimeError("the stem kernel is forward-only: its output would "
+                           "carry no gradient (train with stem_patches, or "
+                           "run under torch.no_grad())")
     n, hp, wp, o = weights.shape
     if g.ndim != 5 or g.shape[:4] != (n, 7, 7, o):
         raise ValueError(f"g {tuple(g.shape)} does not match weights "

@@ -42,7 +42,15 @@ def jax_variables(cfg: JaxConfig, seed: int = 0) -> dict:
         jnp.asarray(batch.obj_mask), jnp.asarray(batch.triple_mask), noise,
         imgs=jnp.asarray(batch.imgs), boxes_gt=jnp.asarray(batch.boxes),
         masks_gt=jnp.asarray(batch.masks))
-    rng = np.random.RandomState(seed + 1)
+    return random_variables(shapes, seed + 1)
+
+
+def random_variables(shapes, seed: int) -> dict:
+    """Numpy values for a tree of ``jax.eval_shape`` leaves: kernels
+    N(0, 1/fan_in), embeddings N(0, 1), biases and BN scale offsets
+    N(0, 0.1^2); BN running statistics are random too, so that a mapping
+    error in them cannot pass by accident."""
+    rng = np.random.RandomState(seed)
 
     def draw(key, shape):
         if key == "kernel":
@@ -64,8 +72,9 @@ def jax_variables(cfg: JaxConfig, seed: int = 0) -> dict:
                 else draw(k, v.shape).astype(np.float32)
                 for k, v in sorted(tree.items())}
 
-    return {"params": fill(shapes["params"]),
-            "batch_stats": fill(shapes["batch_stats"])}
+    # "params" first, then the other collections (the order of the draws).
+    return {k: fill(shapes[k])
+            for k in sorted(shapes, key=lambda k: (k != "params", k))}
 
 
 def jax_test_forward(cfg: JaxConfig, variables: dict, inputs: dict,

@@ -11,10 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+from scene_generation_tpu_torch.models.layers import avg_pool_3x3_s2
 from scene_generation_tpu_torch.ops import _cuda
 from scene_generation_tpu_torch.ops.compositor import (composite,
                                                        composite_plain)
+from scene_generation_tpu_torch.ops.crop import (crop, crop_bwd,
+                                                 crop_bwd_plain, crop_fwd,
+                                                 crop_fwd_plain)
 from scene_generation_tpu_torch.ops.layout import compositor_inputs
+from scene_generation_tpu_torch.ops.sampling import crop_matrices
 from scene_generation_tpu_torch.ops.stem import stem, stem_plain
 
 pytestmark = pytest.mark.cuda
@@ -123,3 +128,90 @@ def test_kernels_refuse_what_they_do_not_take(device):
     got = stem(w_t, g_t)
     torch.cuda.synchronize()
     assert float((got - stem_plain(w_t, g_t)).abs().max()) <= 1e-4
+
+
+def test_forward_only_kernels_refuse_inputs_that_require_grad(device):
+    w_t = torch.rand(1, 14, 14, 3, device=device, requires_grad=True)
+    g_t = torch.rand(1, 7, 7, 3, 4, device=device)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        stem(w_t, g_t)
+    with torch.no_grad():
+        stem(w_t, g_t)
+    inputs = compositor_inputs(
+        torch.ones((1, 2, 4), device=device, requires_grad=True),
+        torch.tensor([0.1, 0.1, 0.9, 0.9], device=device).repeat(1, 2, 1),
+        torch.full((1, 2, 8, 8), 0.7, device=device),
+        torch.ones((1, 2), device=device), 32, 32)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        composite(*inputs)
+
+
+def _crop_case(device, dtype, n, h, w, c, o, hh, ww, seed=0):
+    """Random images and boxes, some partly out of frame, one degenerate;
+    the gradient u is random too."""
+    rng = np.random.RandomState(seed)
+    imgs = rng.uniform(-1, 1, (n, h, w, c)).astype(np.float32)
+    x0 = rng.uniform(-0.2, 0.8, (n, o))
+    y0 = rng.uniform(-0.2, 0.8, (n, o))
+    boxes = np.stack([x0, y0, x0 + rng.uniform(0.05, 0.6, (n, o)),
+                      y0 + rng.uniform(0.05, 0.6, (n, o))], -1)
+    boxes[0, 0] = [0.4, 0.4, 0.4, 0.7]
+    boxes = torch.from_numpy(boxes.astype(np.float32)).to(device, dtype)
+    ry, rx = crop_matrices(boxes, hh, ww, h, w)
+    u = torch.from_numpy(rng.randn(n, o, hh, ww, c).astype(np.float32))
+    return (torch.from_numpy(imgs).to(device, dtype), ry.contiguous(),
+            rx.contiguous(), u.to(device, dtype))
+
+
+CROP_SHAPES = [(12, 128, 128, 3, 9, 64, 64), (12, 128, 128, 3, 9, 32, 32),
+               (2, 32, 48, 3, 4, 8, 16), (3, 20, 17, 5, 3, 19, 7)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CROP_SHAPES)
+def test_crop_kernels_match_plain(device, dtype, shape):
+    imgs, ry, rx, u = _crop_case(device, dtype, *shape)
+    before = dict(_cuda.LAUNCHES)
+    got = crop_fwd(imgs, ry, rx)
+    grads = crop_bwd(imgs, ry, rx, u)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["crop_fwd"] == before.get("crop_fwd", 0) + 1
+    assert _cuda.LAUNCHES["crop_bwd"] == before.get("crop_bwd", 0) + 1
+    want = crop_fwd_plain(imgs, ry, rx)
+    want_grads = crop_bwd_plain(imgs, ry, rx, u)
+    # f32: the same products summed in another order; bf16: both round one
+    # f32 sum to bf16.
+    for a, b in zip((got, *grads), (want, *want_grads)):
+        a, b = a.float(), b.float()
+        scale = float(b.abs().max())
+        tol = 1e-5 * max(scale, 1.0) if dtype == torch.float32 else \
+            2 ** -7 * scale
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= tol
+    again = crop_bwd(imgs, ry, rx, u)
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)        # no atomics: bitwise repeatable
+
+
+def test_crop_function_backward_is_the_kernel(device):
+    imgs, ry, rx, u = _crop_case(device, torch.float32, 2, 32, 32, 3, 4, 8, 8)
+    imgs.requires_grad_(True)
+    before = _cuda.LAUNCHES["crop_bwd"]
+    (crop(imgs, ry, rx) * u).sum().backward()
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["crop_bwd"] == before + 1
+    want = crop_bwd_plain(imgs.detach(), ry, rx, u)[0]
+    assert float((imgs.grad - want).abs().max()) <= 1e-5
+
+
+def test_discriminator_pool_gradient_matches_the_cpu(device):
+    """The multiscale discriminators pool an NHWC input seen as NCHW
+    (channels-last); its gradient on the card must be the CPU's."""
+    x0 = torch.randn(2, 37, 36, 11)
+    grads = []
+    for dev in (device, torch.device("cpu")):
+        x = x0.to(dev).requires_grad_(True)
+        y = avg_pool_3x3_s2(x.permute(0, 3, 1, 2))
+        gy = torch.linspace(-1, 1, y.numel(), device=dev).reshape(y.shape)
+        grads.append(torch.autograd.grad((y * gy).sum(), x)[0].cpu())
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-6
