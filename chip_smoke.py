@@ -6,14 +6,15 @@
 Builds the port's CUDA kernels from ``scene_generation_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the shapes of its path
 (the stem and the compositor at the serving shapes, the crop forward and
-backward at the train shapes), checks that the forward-only kernels refuse
+backward at the train shapes, timed by CUDA events around a call and by
+the profiler's device time), checks that the forward-only kernels refuse
 inputs that require grad, serves HTTP requests and a batch-16 forward
 through the default ``Config()`` (the factored stem, bf16), runs the
 dense-stem variant (the compositor kernel), compares the card with the CPU
 in f32, and times serving (CUDA events, then a ``torch.profiler``
 breakdown of the device's time). Then it trains: a few steps of the
 default ``Config()`` at batch 12 through the port's train loop (the crop
-kernels), timed and profiled, and one f32 train step on the card against
+kernels; the box gradients' kernels must not run), timed and profiled, and one f32 train step on the card against
 the same step on the CPU. Every phase prints one line; any failure raises
 and the exit code is non-zero. Without a CUDA device it exits non-zero
 before printing any result.
@@ -97,6 +98,27 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_kernels_ms(fn, reps: int = 10) -> dict:
+    """Device milliseconds of one call by kernel (each kernel's own time
+    under torch.profiler, averaged over ``reps`` calls after one warm-up):
+    the call's time on the card without the host's launch work, which
+    ``cuda_ms`` includes where the host is the slower of the two. Empty
+    when the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: device_ms(e) / reps for e in device_rows(prof)}
+
+
+def device_total_ms(kernels: dict):
+    return sum(kernels.values()) if kernels else "not measured"
 
 
 def bound(flops: float, nbytes: float, dtype: torch.dtype):
@@ -295,18 +317,85 @@ def grid_sample_inputs(imgs, boxes, u):
     return inp, grid.reshape(n * o, hh, ww, 2).contiguous(), grad
 
 
+D_IMG_ONLY = (True, False, False)        # the train path's crop backward
+EVERY_GRAD = (True, True, True)
+
+
+def crop_library_calls(imgs, boxes, u) -> dict:
+    """One PyTorch call per crop row that computes the same function on the
+    same inputs (never called by the port): ``F.grid_sample`` for the
+    forward, ``grid_sampler_2d_backward`` with the input gradient only for
+    the d_img backward, and with the grid's too for all three gradients."""
+    inp, grid, grad = grid_sample_inputs(imgs, boxes, u)
+
+    def backward(with_grid):
+        return lambda: torch.ops.aten.grid_sampler_2d_backward(
+            grad, inp, grid, 0, 0, True, [True, with_grid])
+
+    return {"crop_fwd": lambda: torch.nn.functional.grid_sample(
+                inp, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True),
+            "crop_bwd": backward(False), "crop_bwd_all": backward(True)}
+
+
+def crop_work(imgs, ry, rx, u, out, needs=None):
+    """(operations, bytes) that the crop forward (``needs`` None) or
+    backward needs on these inputs, ``out`` its outputs: operations from
+    the nonzeros of ry and rx (counted on the card), bytes with each input
+    read once and each output written once. Per (n, o) and channel, with t = ry img and
+    ub = u rx restricted to the rows and columns that hold a nonzero:
+    forward and d_img 2 (nnz(ry) cols(rx) + rows(ry) nnz(rx)); d_ry adds
+    the dense 2 HH H cols(rx) (and ub on every row), d_rx the dense
+    2 WW W rows(ry) (and t on every column)."""
+    c = imgs.shape[-1]
+    hh, h = ry.shape[-2:]
+    ww, w = rx.shape[-2:]
+    nz_y, nz_x = ry != 0, rx != 0
+    nnz_y = nz_y.sum((-1, -2)).double()
+    nnz_x = nz_x.sum((-1, -2)).double()
+    rows_y = nz_y.any(-1).sum(-1).double()       # crop rows that sample
+    cols_x = nz_x.any(-2).sum(-1).double()       # image columns sampled
+    banded = nnz_y * cols_x + rows_y * nnz_x
+    if needs is None:
+        return float(2 * c * banded.sum()), nbytes(imgs, ry, rx, *out)
+    ops = banded if needs[0] else 0.0
+    if needs[1] or needs[2]:
+        ops = ops + nnz_y * w + hh * nnz_x + hh * h * cols_x + ww * w * rows_y
+    read = (ry, rx, u) + ((imgs,) if needs[1] or needs[2] else ())
+    return float(2 * c * ops.sum()), nbytes(*read, *out)
+
+
+def dense_crop_flops(imgs, ry, rx, needs=None) -> float:
+    """The dense products' operations (the bound PR 2 counted): forward
+    ry img then rx; backward t1, ub, d_ry, d_rx, d_img."""
+    n, h, w, c = imgs.shape
+    o, hh, ww = ry.shape[1], ry.shape[2], rx.shape[2]
+    per = 2.0 * n * o * c
+    if needs is None:
+        return per * (hh * h * w + hh * w * ww)
+    if needs[1] or needs[2]:
+        return per * hh * w * (2 * ww + 3 * h)
+    return per * hh * w * (ww + h)                     # ub, d_img
+
+
 def check_crop(cfg: Config) -> dict:
     """Both crop kernels against their plain versions at the train shapes
-    (HH = WW = 64, the appearance crops, and 32, D_obj's), f32 and bf16;
-    the backward twice, bitwise equal; times against the plain versions,
-    the bound and ``F.grid_sample`` (f32)."""
+    (HH = WW = 64, the appearance crops, and 32, D_obj's), f32 and bf16:
+    the forward, the main path's backward (d_img only) and the backward of
+    all three gradients, each backward twice, bitwise equal. Times by CUDA
+    events against the plain versions, the bound (operations counted from
+    the hats' nonzeros; the dense one beside it) and, in f32, the library
+    calls (``crop_library_calls``). Their device times come last
+    (``crop_device_times``)."""
     rows = {}
+    d_img_only, every = D_IMG_ONLY, EVERY_GRAD
     for hh in (64, 32):
         for dtype in (torch.float32, torch.bfloat16):
             imgs, ry, rx, u, boxes = crop_case(cfg, hh, dtype)
             got = crop_fwd(imgs, ry, rx)
-            grads = crop_bwd(imgs, ry, rx, u)
-            again = crop_bwd(imgs, ry, rx, u)
+            grads = {nd: crop_bwd(imgs, ry, rx, u, nd)
+                     for nd in (d_img_only, every)}
+            again = {nd: crop_bwd(imgs, ry, rx, u, nd) for nd in grads}
             torch.cuda.synchronize()
             want = crop_fwd_plain(imgs, ry, rx)
             want_grads = crop_bwd_plain(imgs, ry, rx, u)
@@ -314,8 +403,12 @@ def check_crop(cfg: Config) -> dict:
             # f32: the same products summed in another order (1e-5 of the
             # largest value); bf16: both round one f32 sum to bf16.
             rel = 1e-5 if dtype == torch.float32 else 2 ** -7
-            for name, a, b in zip(("out", "d_img", "d_ry", "d_rx"),
-                                  (got, *grads), (want, *want_grads)):
+            pairs = [("out", got, want)] + [
+                (f"{name}{'' if nd == every else '_alone'}", a, b)
+                for nd, gs in grads.items()
+                for name, a, b in zip(("d_img", "d_ry", "d_rx"), gs,
+                                      want_grads) if a is not None]
+            for name, a, b in pairs:
                 a, b = a.float(), b.float()
                 check(bool(torch.isfinite(a).all()), f"crop {name} not finite")
                 errs[name] = float((a - b).abs().max())
@@ -323,35 +416,35 @@ def check_crop(cfg: Config) -> dict:
                 check(errs[name] <= tols[name],
                       f"crop {name} {dtype} HH={hh}: max abs err "
                       f"{errs[name]} > {tols[name]}")
-            check(all(torch.equal(a, b) for a, b in zip(grads, again)),
-                  f"crop backward {dtype} HH={hh} is not bitwise repeatable")
-            n, h, w, c = imgs.shape
-            o, ww = ry.shape[1], rx.shape[2]
-            per = n * o * c
-            fwd_flops = 2.0 * per * (hh * h * w + hh * w * ww)
-            # t1 = ry img, ub = u rx, d_ry = ub img^T, d_rx = u^T t1,
-            # d_img = ry^T ub: 2 HH W (2 WW + 3 H) per (n, o, c).
-            bwd_flops = 2.0 * per * hh * w * (2 * ww + 3 * h)
-            fwd_bound = bound(fwd_flops, nbytes(imgs, ry, rx, got), dtype)
-            bwd_bound = bound(bwd_flops, nbytes(imgs, ry, rx, u, *grads),
-                              dtype)
-            lib_fwd = lib_bwd = None
+            for nd in grads:
+                check(all(a is None and b is None or torch.equal(a, b)
+                          for a, b in zip(grads[nd], again[nd])),
+                      f"crop backward {nd} {dtype} HH={hh} is not bitwise "
+                      "repeatable")
+            check(torch.equal(grads[d_img_only][0], grads[every][0]),
+                  f"crop d_img alone {dtype} HH={hh} differs from the d_img "
+                  "of the full backward")
+            fwd_bound = bound(*crop_work(imgs, ry, rx, u, (got,)), dtype)
+            bwd_bounds = {nd: bound(*crop_work(
+                imgs, ry, rx, u, [g for g in grads[nd] if g is not None], nd),
+                dtype) for nd in grads}
+            dense = {"fwd": bound(dense_crop_flops(imgs, ry, rx),
+                                  nbytes(imgs, ry, rx, got), dtype)}
+            for nd in grads:
+                dense[nd] = bound(dense_crop_flops(imgs, ry, rx, nd),
+                                  nbytes(imgs, ry, rx, u, *[
+                                      g for g in grads[nd] if g is not None]),
+                                  dtype)
+            lib = {}
             lib_note = "bf16 not timed"
             if dtype == torch.float32:
-                inp, grid, grad = grid_sample_inputs(imgs, boxes, u)
-                gs = torch.nn.functional.grid_sample
-
-                def lib_f():
-                    return gs(inp, grid, mode="bilinear",
-                              padding_mode="zeros", align_corners=True)
-
-                def lib_b():
-                    return torch.ops.aten.grid_sampler_2d_backward(
-                        grad, inp, grid, 0, 0, True, [True, True])
-
-                lf = lib_f().reshape(n, o, c, hh, ww).permute(0, 1, 3, 4, 2)
-                lb = lib_b()[0].reshape(n, o, c, h, w).sum(1).permute(
-                    0, 2, 3, 1)
+                calls = crop_library_calls(imgs, boxes, u)
+                n, h, w, c = imgs.shape
+                o, ww = ry.shape[1], rx.shape[2]
+                lf = calls["crop_fwd"]().reshape(n, o, c, hh, ww).permute(
+                    0, 1, 3, 4, 2)
+                lb = calls["crop_bwd"]()[0].reshape(n, o, c, h, w).sum(
+                    1).permute(0, 2, 3, 1)
                 lib_err = (float((lf - want).abs().max()),
                            float((lb - want_grads[0]).abs().max()))
                 # Sample coordinates are rounded differently (grid_sample
@@ -363,27 +456,60 @@ def check_crop(cfg: Config) -> dict:
                             "max_abs_err_d_img": lib_err[1],
                             "agrees": agree}
                 if agree:
-                    lib_fwd = cuda_ms(lib_f)
-                    lib_bwd = cuda_ms(lib_b)
+                    lib = {k: cuda_ms(fn) for k, fn in calls.items()}
             key = (hh, dtype)
             rows[("crop_fwd",) + key] = dict(
                 max_abs_err=errs["out"], tol=tols["out"],
                 ms=cuda_ms(lambda: crop_fwd(imgs, ry, rx)),
                 plain_ms=cuda_ms(lambda: crop_fwd_plain(imgs, ry, rx)),
-                library_ms=lib_fwd, bound_ms=fwd_bound[0],
-                bound_by=fwd_bound[1])
-            rows[("crop_bwd",) + key] = dict(
-                max_abs_err=max(errs["d_img"], errs["d_ry"], errs["d_rx"]),
-                errs={k: errs[k] for k in ("d_img", "d_ry", "d_rx")},
-                tols={k: tols[k] for k in ("d_img", "d_ry", "d_rx")},
-                ms=cuda_ms(lambda: crop_bwd(imgs, ry, rx, u)),
-                plain_ms=cuda_ms(lambda: crop_bwd_plain(imgs, ry, rx, u)),
-                library_ms=lib_bwd, bound_ms=bwd_bound[0],
-                bound_by=bwd_bound[1])
-            for name in ("crop_fwd", "crop_bwd"):
+                library_ms=lib.get("crop_fwd"), bound_ms=fwd_bound[0],
+                bound_by=fwd_bound[1], dense_bound_ms=dense["fwd"][0],
+                dense_bound_by=dense["fwd"][1])
+            for name, nd in (("crop_bwd", d_img_only),
+                             ("crop_bwd_all", every)):
+                mine = {k: v for k, v in errs.items() if k.startswith("d_")
+                        and k.endswith("_alone") == (nd == d_img_only)}
+                rows[(name,) + key] = dict(
+                    needs=nd, max_abs_err=max(mine.values()), errs=mine,
+                    tols={k: tols[k] for k in mine},
+                    ms=cuda_ms(lambda: crop_bwd(imgs, ry, rx, u, nd)),
+                    plain_ms=cuda_ms(
+                        lambda: crop_bwd_plain(imgs, ry, rx, u, nd)),
+                    library_ms=lib.get(name), bound_ms=bwd_bounds[nd][0],
+                    bound_by=bwd_bounds[nd][1], dense_bound_ms=dense[nd][0],
+                    dense_bound_by=dense[nd][1])
+            for name in ("crop_fwd", "crop_bwd", "crop_bwd_all"):
                 say(f"kernel {name}", hh=hh, dtype=str(dtype),
                     library=lib_note, **rows[(name,) + key])
     return rows
+
+
+def crop_device_times(cfg: Config, rows: dict) -> None:
+    """Each crop row's device time per call and its library call's (the
+    profiler's own kernel times), added to ``rows``. It runs after every
+    end-to-end phase: a profiler session seems to leave host work behind
+    that slows the launches after it (NVIDIA H100 80GB HBM3, 700 W: with
+    these sessions before it, the factored serving rate read 910-940
+    img/s against 1164-1193 without, at the same device busy time)."""
+    for hh in (64, 32):
+        for dtype in (torch.float32, torch.bfloat16):
+            imgs, ry, rx, u, boxes = crop_case(cfg, hh, dtype)
+            calls = {"crop_fwd": lambda: crop_fwd(imgs, ry, rx),
+                     "crop_bwd": lambda: crop_bwd(imgs, ry, rx, u,
+                                                  D_IMG_ONLY),
+                     "crop_bwd_all": lambda: crop_bwd(imgs, ry, rx, u)}
+            timed_lib = rows[("crop_fwd", hh, dtype)]["library_ms"] is not None
+            libs = crop_library_calls(imgs, boxes, u) if timed_lib else {}
+            for name, fn in calls.items():
+                dev = device_kernels_ms(fn)
+                row = rows[(name, hh, dtype)]
+                row.update(device_ms=device_total_ms(dev), device_kernels=dev,
+                           library_device_ms=device_total_ms(
+                               device_kernels_ms(libs[name]))
+                           if name in libs else None)
+                say(f"kernel {name} device", hh=hh, dtype=str(dtype),
+                    device_ms=row["device_ms"], device_kernels=dev,
+                    library_device_ms=row["library_device_ms"])
 
 
 def check_forward_only_guards() -> None:
@@ -731,6 +857,9 @@ def train_on_card() -> dict:
     check(launches.get("crop_fwd", 0) >= 4 * TRAIN_STEPS
           and launches.get("crop_bwd", 0) >= TRAIN_STEPS,
           f"crop kernels not launched on every step: {launches}")
+    # Boxes are batch constants: the box gradients' kernels never run.
+    check(launches.get("crop_bwd_boxes", 0) == 0,
+          f"the train step launched the d_ry / d_rx kernels: {launches}")
 
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: fn(state, batch), warmup=2, reps=6)
@@ -937,6 +1066,7 @@ def main() -> int:
         train = train_on_card()
     train_card_vs_cpu()
     generator_f64()
+    crop_device_times(Config(), crop_rows)
 
     def row(name, src, replaces, launches, r):
         return dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -953,8 +1083,9 @@ def main() -> int:
             "scene_generation_tpu/ops/pallas/compositor.py:48",
             dense_launches["compositor"], comp_rows[torch.bfloat16]),
         # D_obj's crops (3 of the 4 forward launches a step; f32, as the
-        # train step runs them); the 64 px appearance crops are printed
-        # above.
+        # train step runs them) and the main path's backward (d_img only);
+        # the 64 px appearance crops and the three-gradient backward are
+        # printed above.
         row("crop_fwd", "scene_generation_tpu_torch/csrc/crop.cu",
             "scene_generation_tpu/ops/pallas/crop.py:88",
             train["launches"]["crop_fwd"],

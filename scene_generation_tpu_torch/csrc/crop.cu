@@ -13,38 +13,65 @@
 //   d_ry[n,o,p,y]  = sum_c (u_oc (img_c rx_o^T)^T)[p,y]
 //   d_rx[n,o,q,x]  = sum_c (u_oc^T (ry_o img_c))[q,x]
 //
-// Every product is a float32 FMA and every sum is taken in float32 in a
-// fixed order (no atomics), so two runs give bitwise-equal results; bf16
-// outputs are rounded once, on store.
+// What bounds it on this card. The op is defined on dense matrices, but
+// the path feeds it bilinear hats (ops/sampling.py::crop_matrices): each
+// row of ry and rx holds at most two nonzeros, and since the samples are
+// monotone in p (q), each column's nonzeros are one contiguous run. On the
+// nonzeros alone the work is a few MFLOP, so the bound is bytes (H100 SXM,
+// 3.35 TB/s): at the train shapes (N=12, 128x128x3 images, O=9, f32) the
+// forward reads the images (2.36 MB) and the dense hats (1.77 MB each at
+// 32 px, 3.54 MB at 64 px) and writes the crops (1.33 / 5.31 MB): 2.2 us at
+// 32 px, 4.4 us at 64 px. The d_img backward reads ry, rx and u and writes
+// d_img, no image: 2.2 us at 32 px. d_ry and d_rx are dense outputs
+// (non-zero wherever the image is, whatever the hats): with them the
+// backward at 32 px needs 0.24 GFLOP, 3.5 us at the f32 rate, against
+// 3.9 us of bytes.
 //
-// What bounds it on this card: at the train shapes (N=12, 128x128x3 images,
-// O=9 crops of 64x64 or 32x32) the dense products are 0.4 to 1.3 GFLOP
-// against 2 to 15 MB of traffic, so the floor is the float32 FMA rate
-// outside the tensor cores (tens of microseconds at most). ry and rx hold at
-// most two nonzeros a row (bilinear hats), but the op is defined on dense
-// matrices, as the TPU kernel computes it.
+// The banded design. A span is the first and last nonzero of a row or a
+// column of a hat; the kernels multiply only inside spans, so a dense ry/rx
+// is still right (every span is then the whole row: slow, but the same
+// sums). Each output is owned by one thread, whose chain of dependent loads
+// is what the kernels wait on: the spans, then the taps, loaded together.
+//   forward:  a row-span pass (a warp per row of ry and rx) writes the
+//             (N, O, HH + WW) row spans to int32 scratch; then a thread per
+//             crop pixel (n, o, p, q) and group of CG channels computes
+//             out[p][q][c] = sum_{x in span(q)} rx[q][x] *
+//                            (sum_{y in span(p)} ry[p][y] img[y][x][c]),
+//             the image through the read-only path (a box's rows are a small
+//             part of an image, and all 12 images fit in L2), neighbouring
+//             threads on neighbouring q, so loads and the NHWC store stay
+//             close.
+//   d_img:    a column-span pass (a block per (n, o)) writes the (N, O,
+//             H + W) column spans; then a thread per image pixel (n, y, x)
+//             and group of CG channels computes
+//             d_img[y][x][c] = sum_o sum_{p in colspan(ry_o, y)} ry[o][p][y]
+//                              * sum_{q in colspan(rx_o, x)} u[o][p][q][c]
+//                                * rx[o][q][x],
+//             loading the spans of SPAN_BATCH objects at once: no float
+//             scratch, no atomics. A degenerate box (x1 == x0) gives image
+//             columns whose span is every q: right, not fast.
+//   d_ry, d_rx (launched only when asked): per (n, o, TP rows of p) the
+//             rows kernel forms t1 = ry img (kept in f32 scratch) and
+//             ub = u rx (in shared memory) and writes its rows of d_ry; per
+//             (n, o, TQ columns of q) the rx kernel sums u t1 into d_rx.
+//             Dense, on the CUDA cores.
+// Why two launches, not one: on the H100, a forward block that staged its
+// ry rows and all of rx_o in shared memory made each thread's staging loop
+// a chain of round trips, and a fused forward that found its rows' spans
+// in-block (every load issued at once) needed more registers and re-read
+// all of rx_o from L2 in every block; both were slower than this design.
 //
-// What this design does about it. An NHWC image row is K = W*C contiguous
-// values, so "ry @ img_c" for every channel at once is one (rows x H) by
-// (H x K) product whose columns are coalesced in device memory. A forward
-// block owns one (n, o) and TP rows of the crop: it stages those TP rows of
-// ry, all of rx_o (row stride W+1, so a warp's reads of different rows hit
-// different banks) and the (TP x K) product t = ry_rows @ img in shared
-// memory, then writes the (TP, WW, C) tile once, coalesced, in the output's
-// layout. The image is read from L2 (12 images of 196 KB fit in its 50 MB),
-// once per block. The NHWC <-> channel-major transposes the TPU version does
-// outside its kernel are this kernel's own indexing.
+// Summation order. Every product is a float32 FMA and every sum runs in
+// float32 in a fixed ascending order (y, then x; q, then p, then o), the
+// association of the dense kernels, so two runs give bitwise-equal results
+// and dropping the zero terms leaves every finite result equal to the dense
+// sum up to the sign of a zero. bf16 outputs are rounded once, on store.
 //
-// The backward runs three kernels on the stream, each owning its outputs:
-//   rows:  per (n, o, TP rows of p): t1 = ry_rows @ img and ub = u_rows . rx
-//          (both (TP x K), kept in f32 scratch for the next two), then the
-//          d_ry rows = ub @ img^T;
-//   rx:    per (n, o, TQ rows of q): d_rx = sum_{p,c} u[p,q,c] t1[p,x,c];
-//   image: per (n, TY rows of y): d_img = sum_{o,p} ry[o,p,y] ub[o,p,:],
-//          looping over o and p in order: the sum over objects that the TPU
-//          kernel carries across its sequential grid, without atomics.
-// The sums run on the CUDA cores; a version on the tensor cores (wgmma, or
-// the hats' two-nonzero structure) is later work.
+// Non-finite inputs. The dense products (the TPU kernel's, and the plain
+// versions') turn one NaN or Inf anywhere in an image into NaN in every
+// crop of that image, since 0 * NaN = NaN. The banded forward and d_img
+// kernels, like grid_sample, propagate only what they sample. A NaN in ry
+// or rx counts as a nonzero and is kept.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,13 +79,21 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int TP = 16;   // crop rows (p) per block: forward and backward rows
-constexpr int TQ = 16;   // crop columns (q) per block: backward d_rx
-constexpr int TY = 16;   // image rows (y) per block: backward d_img
+constexpr int TP = 16;          // crop rows (p) per block: backward d_ry rows
+constexpr int TQ = 16;          // crop columns (q) per block: backward d_rx
+constexpr int SPAN_ROWS = 8;    // rows (one a warp) per row-span block
+constexpr int SPAN_THREADS = 128;
+constexpr int SPAN_BATCH = 8;   // objects whose spans d_img loads at once
+constexpr int CG = 4;           // channels per thread: forward and d_img
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
+}
+// Through the read-only (non-coherent) cache.
+__device__ __forceinline__ float load_ro(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_ro(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
 }
 __device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
@@ -102,47 +137,178 @@ __device__ void rows_times_image(const float* ry_s, const T* img, float* t_s,
   }
 }
 
-// grid (ceil(HH / TP), O, N).
+// grid (ceil(N * O * (HH + WW) / SPAN_ROWS)), one warp per row. Row spans:
+// spans[no * (HH + WW) + r] = the first and last column of row r holding a
+// nonzero (len and -1 for a row of zeros); r < HH: rows of ry_o (over H),
+// then r - HH < WW: rows of rx_o (over W). NaN counts as a nonzero.
+template <typename T>
+__global__ void __launch_bounds__(32 * SPAN_ROWS)
+crop_row_spans_kernel(const T* __restrict__ ry, const T* __restrict__ rx,
+                      int2* __restrict__ spans, int H, int W, int HH, int WW,
+                      int rows) {
+  const int row = blockIdx.x * SPAN_ROWS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const int no = row / (HH + WW), r = row - no * (HH + WW);
+  const bool of_ry = r < HH;
+  const int len = of_ry ? H : W;
+  const T* m = of_ry ? ry + ((size_t)no * HH + r) * H
+                     : rx + ((size_t)no * WW + r - HH) * W;
+  int lo = len, hi = -1;
+#pragma unroll 4
+  for (int j = lane; j < len; j += 32) {
+    if (load_ro(m + j) != 0.f) {
+      lo = min(lo, j);
+      hi = j;
+    }
+  }
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if (lane == 0) spans[row] = make_int2(lo, hi);
+}
+
+// grid (ceil(HH * WW * groups / THREADS), N * O). One thread per crop pixel
+// (p, q) and group of CG channels, neighbouring threads on neighbouring q:
+// out[n,o,p,q,c] = sum_{x in span(q)} (sum_{y in span(p)} ry[p][y]
+// img[y][x][c]) rx[q][x], y and x in order. Unrolled by two, the hats'
+// width, so a thread's loads issue together once its spans are known.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 crop_fwd_kernel(const T* __restrict__ img, const T* __restrict__ ry,
-                const T* __restrict__ rx, T* __restrict__ out, int H, int W,
-                int C, int O, int HH, int WW) {
-  extern __shared__ __align__(16) float smem[];
-  const int K = W * C, QC = WW * C;
-  float* ry_s = smem;                     // [TP][H]
-  float* t_s = ry_s + TP * H;             // [TP][K]
-  float* rx_s = t_s + TP * K;             // [WW][W + 1]
-  const int n = blockIdx.z, o = blockIdx.y, p0 = blockIdx.x * TP;
-  const size_t no = (size_t)n * O + o;
-  const int rows = min(TP, HH - p0);
+                const T* __restrict__ rx, const int2* __restrict__ spans,
+                T* __restrict__ out, int H, int W, int C, int O, int HH,
+                int WW, int plane) {
+  const int idx = blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= plane) return;
+  const int groups = (C + CG - 1) / CG;
+  const int pq = idx / groups;
+  const int c0 = (idx - pq * groups) * CG, nc = min(CG, C - c0);
+  const int p = pq / WW, q = pq - p * WW;
+  const int no = blockIdx.y, n = no / O;
+  const int2 sp = spans[(size_t)no * (HH + WW) + p];
+  const int2 sq = spans[(size_t)no * (HH + WW) + HH + q];
+  const T* ry_row = ry + ((size_t)no * HH + p) * H;
+  const T* rx_row = rx + ((size_t)no * WW + q) * W;
+  const T* img_n = img + (size_t)n * H * W * C + c0;
+  float s[CG] = {};
+#pragma unroll 2
+  for (int x = sq.x; x <= sq.y; ++x) {
+    float t[CG] = {};
+#pragma unroll 2
+    for (int y = sp.x; y <= sp.y; ++y) {
+      const float a = load_ro(ry_row + y);
+      const T* px = img_n + ((size_t)y * W + x) * C;
+#pragma unroll
+      for (int k = 0; k < CG; ++k)
+        if (k < nc) t[k] = fmaf(a, load_ro(px + k), t[k]);
+    }
+    const float b = load_ro(rx_row + x);
+#pragma unroll
+    for (int k = 0; k < CG; ++k) s[k] = fmaf(t[k], b, s[k]);
+  }
+  T* o = out + (((size_t)no * HH + p) * WW + q) * C + c0;
+#pragma unroll
+  for (int k = 0; k < CG; ++k)
+    if (k < nc) store_from_f32(o + k, s[k]);
+}
 
-  stage_rows(ry_s, ry + (no * HH + p0) * H, rows, TP, H);
-  stage_rx(rx_s, rx + no * WW * W, WW, W);
-  __syncthreads();
-  rows_times_image(ry_s, img + (size_t)n * H * K, t_s, H, K);
-  __syncthreads();
-
-  T* out_rows = out + (no * HH + p0) * QC;
-  for (int idx = threadIdx.x; idx < rows * QC; idx += blockDim.x) {
-    const int i = idx / QC, r = idx - i * QC, q = r / C, c = r - q * C;
-    const float* trow = t_s + i * K + c;
-    const float* rxr = rx_s + q * (W + 1);
-    float s = 0.f;
-    for (int x = 0; x < W; ++x) s = fmaf(trow[x * C], rxr[x], s);
-    store_from_f32(out_rows + idx, s);
+// grid (N * O, 2). Column spans: spans[no * (H + W) + j] = the first and
+// last row of column j holding a nonzero (rows and -1 for a column of
+// zeros); j < H: columns of ry_o (rows p), then j - H < W: columns of rx_o
+// (rows q).
+template <typename T>
+__global__ void __launch_bounds__(SPAN_THREADS)
+crop_col_spans_kernel(const T* __restrict__ ry, const T* __restrict__ rx,
+                      int2* __restrict__ spans, int H, int W, int HH,
+                      int WW) {
+  const size_t no = blockIdx.x;
+  const bool of_rx = blockIdx.y == 1;
+  const int cols = of_rx ? W : H, rows = of_rx ? WW : HH;
+  const T* m = of_rx ? rx + no * WW * W : ry + no * HH * H;
+  int2* out = spans + no * (H + W) + (of_rx ? H : 0);
+  for (int j = threadIdx.x; j < cols; j += blockDim.x) {
+    int lo = rows, hi = -1;
+#pragma unroll 8
+    for (int r = 0; r < rows; ++r) {
+      if (load_ro(m + (size_t)r * cols + j) != 0.f) {
+        lo = min(lo, r);
+        hi = r;
+      }
+    }
+    out[j] = make_int2(lo, hi);
   }
 }
 
-// grid (ceil(HH / TP), O, N). Writes t1 and ub (f32 scratch, (N,O,HH,K))
-// and the d_ry rows.
+// grid (ceil(H * W * groups / THREADS), N). One thread per image pixel
+// (y, x) and group of CG channels, neighbouring threads on neighbouring x:
+// d_img[n,y,x,c] = sum_o sum_{p in colspan(ry_o, y)} ry[o][p][y]
+//                  * (sum_{q in colspan(rx_o, x)} u[o][p][q][c] rx[o][q][x]),
+// o, p and q in order. The spans of SPAN_BATCH objects are loaded at once;
+// the span loops are unrolled by two, the hats' width.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+crop_bwd_img_kernel(const T* __restrict__ ry, const T* __restrict__ rx,
+                    const T* __restrict__ u, const int2* __restrict__ spans,
+                    T* __restrict__ d_img, int H, int W, int C, int O,
+                    int HH, int WW, int plane) {
+  const int idx = blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= plane) return;
+  const int groups = (C + CG - 1) / CG;
+  const int yx = idx / groups;
+  const int c0 = (idx - yx * groups) * CG, nc = min(CG, C - c0);
+  const int y = yx / W, x = yx - y * W;
+  const int n = blockIdx.y;
+  const int QC = WW * C;
+  float acc[CG] = {};
+  for (int o0 = 0; o0 < O; o0 += SPAN_BATCH) {
+    int2 sy[SPAN_BATCH], sx[SPAN_BATCH];
+#pragma unroll
+    for (int k = 0; k < SPAN_BATCH; ++k) {
+      if (o0 + k < O) {
+        const int2* so = spans + ((size_t)n * O + o0 + k) * (H + W);
+        sy[k] = so[y];
+        sx[k] = so[H + x];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < SPAN_BATCH; ++k) {
+      if (o0 + k >= O) break;
+      if (sy[k].x > sy[k].y || sx[k].x > sx[k].y) continue;
+      const size_t no = (size_t)n * O + o0 + k;
+      const T* ry_col = ry + no * HH * H + y;
+      const T* rx_col = rx + no * WW * W + x;
+      const T* u_no = u + no * HH * QC + c0;
+#pragma unroll 2
+      for (int p = sy[k].x; p <= sy[k].y; ++p) {
+        float ub[CG] = {};
+#pragma unroll 2
+        for (int q = sx[k].x; q <= sx[k].y; ++q) {
+          const float b = load_ro(rx_col + (size_t)q * W);
+          const T* uq = u_no + (size_t)p * QC + q * C;
+#pragma unroll
+          for (int j = 0; j < CG; ++j)
+            if (j < nc) ub[j] = fmaf(load_ro(uq + j), b, ub[j]);
+        }
+        const float a = load_ro(ry_col + (size_t)p * H);
+#pragma unroll
+        for (int j = 0; j < CG; ++j) acc[j] = fmaf(a, ub[j], acc[j]);
+      }
+    }
+  }
+  T* out = d_img + (((size_t)n * H + y) * W + x) * C + c0;
+#pragma unroll
+  for (int j = 0; j < CG; ++j)
+    if (j < nc) store_from_f32(out + j, acc[j]);
+}
+
+// grid (ceil(HH / TP), O, N). Writes t1 (f32 scratch, (N,O,HH,K)) and the
+// d_ry rows.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 crop_bwd_rows_kernel(const T* __restrict__ img, const T* __restrict__ ry,
                      const T* __restrict__ rx, const T* __restrict__ u,
-                     T* __restrict__ d_ry, float* __restrict__ t1g,
-                     float* __restrict__ ubg, int H, int W, int C, int O,
-                     int HH, int WW) {
+                     T* __restrict__ d_ry, float* __restrict__ t1g, int H,
+                     int W, int C, int O, int HH, int WW) {
   extern __shared__ __align__(16) float smem[];
   const int K = W * C, QC = WW * C;
   float* ry_s = smem;                     // [TP][H]
@@ -172,11 +338,8 @@ crop_bwd_rows_kernel(const T* __restrict__ img, const T* __restrict__ ry,
   __syncthreads();
 
   float* t1_rows = t1g + (no * HH + p0) * K;
-  float* ub_rows = ubg + (no * HH + p0) * K;
-  for (int idx = threadIdx.x; idx < rows * K; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < rows * K; idx += blockDim.x)
     t1_rows[idx] = t_s[idx];
-    ub_rows[idx] = ub_s[idx];
-  }
 
   // d_ry[i][y] = sum_k ub[i][k] * img[y][k]
   T* d_ry_rows = d_ry + (no * HH + p0) * H;
@@ -217,38 +380,6 @@ crop_bwd_rx_kernel(const T* __restrict__ u, const float* __restrict__ t1g,
   }
 }
 
-// grid (ceil(H / TY), N). d_img[y][k] = sum_o sum_p ry[o][p][y] * ub[o][p][k]
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-crop_bwd_img_kernel(const T* __restrict__ ry, const float* __restrict__ ubg,
-                    T* __restrict__ d_img, int H, int W, int C, int O,
-                    int HH) {
-  extern __shared__ __align__(16) float smem[];
-  float* ry_s = smem;                     // [O * HH][TY]
-  const int K = W * C, OP = O * HH;
-  const int n = blockIdx.y, y0 = blockIdx.x * TY;
-  const int rows = min(TY, H - y0);
-  const T* ry_n = ry + (size_t)n * OP * H;
-  for (int i = threadIdx.x; i < OP * TY; i += blockDim.x) {
-    const int op = i / TY, j = i - op * TY;
-    ry_s[i] = j < rows ? load_f32(ry_n + (size_t)op * H + y0 + j) : 0.f;
-  }
-  __syncthreads();
-  const float* ub_n = ubg + (size_t)n * OP * K;
-  T* out = d_img + ((size_t)n * H + y0) * K;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    float acc[TY];
-#pragma unroll
-    for (int j = 0; j < TY; ++j) acc[j] = 0.f;
-    for (int op = 0; op < OP; ++op) {
-      const float v = ub_n[(size_t)op * K + k];
-#pragma unroll
-      for (int j = 0; j < TY; ++j) acc[j] = fmaf(ry_s[op * TY + j], v, acc[j]);
-    }
-    for (int j = 0; j < rows; ++j) store_from_f32(out + (size_t)j * K + k, acc[j]);
-  }
-}
-
 // Allow a kernel more than 48 KB of dynamic shared memory; a request beyond
 // the block's limit comes back as an error and is cleared, so no later
 // launch check reports it.
@@ -262,31 +393,48 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 template <typename T>
 cudaError_t crop_fwd(const void* img, const void* ry, const void* rx,
-                     void* out, int N, int H, int W, int C, int O, int HH,
-                     int WW, cudaStream_t stream) {
-  const int K = W * C;
-  const size_t smem =
-      sizeof(float) * ((size_t)TP * H + (size_t)TP * K + (size_t)WW * (W + 1));
-  cudaError_t err = allow_smem(crop_fwd_kernel<T>, smem);
+                     void* out, int2* spans, int N, int H, int W, int C,
+                     int O, int HH, int WW, cudaStream_t stream) {
+  const T* ry_t = static_cast<const T*>(ry);
+  const T* rx_t = static_cast<const T*>(rx);
+  const int rows = N * O * (HH + WW);
+  crop_row_spans_kernel<T><<<(rows + SPAN_ROWS - 1) / SPAN_ROWS,
+                             32 * SPAN_ROWS, 0, stream>>>(
+      ry_t, rx_t, spans, H, W, HH, WW, rows);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 grid((HH + TP - 1) / TP, O, N);
-  crop_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(img), static_cast<const T*>(ry),
-      static_cast<const T*>(rx), static_cast<T*>(out), H, W, C, O, HH, WW);
+  const int plane = HH * WW * ((C + CG - 1) / CG);
+  crop_fwd_kernel<T><<<dim3((plane + THREADS - 1) / THREADS, N * O), THREADS,
+                       0, stream>>>(static_cast<const T*>(img), ry_t, rx_t,
+                                    spans, static_cast<T*>(out), H, W, C, O,
+                                    HH, WW, plane);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t crop_bwd(const void* img, const void* ry, const void* rx,
-                     const void* u, void* d_img, void* d_ry, void* d_rx,
-                     float* t1, float* ub, int N, int H, int W, int C, int O,
-                     int HH, int WW, cudaStream_t stream) {
-  const int K = W * C, QC = WW * C;
-  const T* img_t = static_cast<const T*>(img);
+cudaError_t crop_bwd_img(const void* ry, const void* rx, const void* u,
+                         void* d_img, int2* spans, int N, int H, int W, int C,
+                         int O, int HH, int WW, cudaStream_t stream) {
   const T* ry_t = static_cast<const T*>(ry);
   const T* rx_t = static_cast<const T*>(rx);
-  const T* u_t = static_cast<const T*>(u);
+  crop_col_spans_kernel<T><<<dim3(N * O, 2), SPAN_THREADS, 0, stream>>>(
+      ry_t, rx_t, spans, H, W, HH, WW);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int plane = H * W * ((C + CG - 1) / CG);
+  crop_bwd_img_kernel<T><<<dim3((plane + THREADS - 1) / THREADS, N), THREADS,
+                           0, stream>>>(ry_t, rx_t, static_cast<const T*>(u),
+                                        spans, static_cast<T*>(d_img), H, W,
+                                        C, O, HH, WW, plane);
+  return cudaGetLastError();
+}
 
+template <typename T>
+cudaError_t crop_bwd_boxes(const void* img, const void* ry, const void* rx,
+                           const void* u, void* d_ry, void* d_rx, float* t1,
+                           int N, int H, int W, int C, int O, int HH, int WW,
+                           cudaStream_t stream) {
+  const int K = W * C, QC = WW * C;
   const size_t smem_rows =
       sizeof(float) * ((size_t)TP * H + 2 * (size_t)TP * K +
                        (size_t)TP * QC + (size_t)WW * (W + 1));
@@ -294,23 +442,15 @@ cudaError_t crop_bwd(const void* img, const void* ry, const void* rx,
   if (err != cudaSuccess) return err;
   crop_bwd_rows_kernel<T><<<dim3((HH + TP - 1) / TP, O, N), THREADS,
                             smem_rows, stream>>>(
-      img_t, ry_t, rx_t, u_t, static_cast<T*>(d_ry), t1, ub, H, W, C, O, HH,
-      WW);
+      static_cast<const T*>(img), static_cast<const T*>(ry),
+      static_cast<const T*>(rx), static_cast<const T*>(u),
+      static_cast<T*>(d_ry), t1, H, W, C, O, HH, WW);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   crop_bwd_rx_kernel<T><<<dim3((WW + TQ - 1) / TQ, O, N), THREADS, 0,
-                          stream>>>(u_t, t1, static_cast<T*>(d_rx), W, C, O,
-                                    HH, WW);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const size_t smem_img = sizeof(float) * (size_t)O * HH * TY;
-  err = allow_smem(crop_bwd_img_kernel<T>, smem_img);
-  if (err != cudaSuccess) return err;
-  crop_bwd_img_kernel<T><<<dim3((H + TY - 1) / TY, N), THREADS, smem_img,
-                           stream>>>(ry_t, ub, static_cast<T*>(d_img), H, W,
-                                     C, O, HH);
+                          stream>>>(static_cast<const T*>(u), t1,
+                                    static_cast<T*>(d_rx), W, C, O, HH, WW);
   return cudaGetLastError();
 }
 
@@ -320,32 +460,48 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() of its
 // launches (the first that failed).
+// spans: int32 scratch of N*O*(HH+WW)*2 values (the row spans).
 int sg_crop_fwd(const void* img, const void* ry, const void* rx, void* out,
-                int N, int H, int W, int C, int O, int HH, int WW, int dtype,
-                void* stream) {
+                void* spans, int N, int H, int W, int C, int O, int HH,
+                int WW, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int2* sp = static_cast<int2*>(spans);
   if (dtype == 0)
-    return crop_fwd<float>(img, ry, rx, out, N, H, W, C, O, HH, WW, s);
+    return crop_fwd<float>(img, ry, rx, out, sp, N, H, W, C, O, HH, WW, s);
   if (dtype == 1)
-    return crop_fwd<__nv_bfloat16>(img, ry, rx, out, N, H, W, C, O, HH, WW,
-                                   s);
+    return crop_fwd<__nv_bfloat16>(img, ry, rx, out, sp, N, H, W, C, O, HH,
+                                   WW, s);
   return cudaErrorInvalidValue;
 }
 
-// t1 and ub: float32 scratch of N*O*HH*W*C values each.
-int sg_crop_bwd(const void* img, const void* ry, const void* rx,
-                const void* u, void* d_img, void* d_ry, void* d_rx, void* t1,
-                void* ub, int N, int H, int W, int C, int O, int HH, int WW,
-                int dtype, void* stream) {
+// spans: int32 scratch of N*O*(H+W)*2 values (the column spans).
+int sg_crop_bwd_img(const void* ry, const void* rx, const void* u,
+                    void* d_img, void* spans, int N, int H, int W, int C,
+                    int O, int HH, int WW, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int2* sp = static_cast<int2*>(spans);
+  if (dtype == 0)
+    return crop_bwd_img<float>(ry, rx, u, d_img, sp, N, H, W, C, O, HH, WW,
+                               s);
+  if (dtype == 1)
+    return crop_bwd_img<__nv_bfloat16>(ry, rx, u, d_img, sp, N, H, W, C, O,
+                                       HH, WW, s);
+  return cudaErrorInvalidValue;
+}
+
+// t1: float32 scratch of N*O*HH*W*C values.
+int sg_crop_bwd_boxes(const void* img, const void* ry, const void* rx,
+                      const void* u, void* d_ry, void* d_rx, void* t1, int N,
+                      int H, int W, int C, int O, int HH, int WW, int dtype,
+                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* t1f = static_cast<float*>(t1);
-  float* ubf = static_cast<float*>(ub);
   if (dtype == 0)
-    return crop_bwd<float>(img, ry, rx, u, d_img, d_ry, d_rx, t1f, ubf, N, H,
-                           W, C, O, HH, WW, s);
+    return crop_bwd_boxes<float>(img, ry, rx, u, d_ry, d_rx, t1f, N, H, W, C,
+                                 O, HH, WW, s);
   if (dtype == 1)
-    return crop_bwd<__nv_bfloat16>(img, ry, rx, u, d_img, d_ry, d_rx, t1f,
-                                   ubf, N, H, W, C, O, HH, WW, s);
+    return crop_bwd_boxes<__nv_bfloat16>(img, ry, rx, u, d_ry, d_rx, t1f, N,
+                                         H, W, C, O, HH, WW, s);
   return cudaErrorInvalidValue;
 }
 

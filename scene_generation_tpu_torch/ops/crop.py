@@ -12,11 +12,18 @@ CUDA tensors its forward and its backward launch the kernels, on CPU
 tensors they run ``crop_fwd_plain`` and ``crop_bwd_plain``; neither falls
 back from one to the other. The interpolation matrices are built in plain
 torch by ``crop_matrices``, so gradients reach the boxes through autograd.
+
+The backward computes only the gradients its inputs need: d_img by the
+banded gather kernel (counted in ``LAUNCHES["crop_bwd"]``), d_ry and d_rx,
+the box gradients, by a dense pair of kernels launched only when one of
+them is asked for (``LAUNCHES["crop_bwd_boxes"]``). The kernels touch only
+the hats' nonzeros, so unlike the dense plain versions they do not spread
+a NaN or Inf of an image into crops that do not sample it.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -26,6 +33,10 @@ from scene_generation_tpu_torch.ops.sampling import (crop_matrices,
                                                       interp_matrix)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+Needs = Sequence[bool]
+Grads = Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
+              Optional[torch.Tensor]]
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -45,8 +56,8 @@ def crop_fwd_plain(imgs: torch.Tensor, ry: torch.Tensor,
 
 
 def crop_bwd_plain(imgs: torch.Tensor, ry: torch.Tensor, rx: torch.Tensor,
-                   u: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   u: torch.Tensor, needs: Needs = (True, True, True)
+                   ) -> Grads:
     """The three gradients of the TPU backward kernel
     (``ops/pallas/crop.py:144-152``), written out (not autograd of the
     forward), given ``u = dL/dcrop``:
@@ -55,17 +66,22 @@ def crop_bwd_plain(imgs: torch.Tensor, ry: torch.Tensor, rx: torch.Tensor,
         d_rx_o = sum_c u_oc^T t1,  d_ry_o = sum_c u_oc t2^T,
         d_img_c = sum_o ry_o^T (u_oc rx_o)
 
-    Returns (d_imgs, d_ry, d_rx) in the inputs' dtypes."""
+    Returns (d_imgs, d_ry, d_rx) in the inputs' dtypes, ``None`` for each
+    gradient whose entry of ``needs`` is false."""
     acc = _acc_dtype(imgs)
     img, r_y, r_x, uu = (t.to(acc) for t in (imgs, ry, rx, u))
+    d_img = d_ry = d_rx = None
     with exact_f32_matmul():
-        t1 = torch.einsum("nopy,nyxc->nopxc", r_y, img)
-        t2 = torch.einsum("nyxc,noqx->noyqc", img, r_x)
-        d_rx = torch.einsum("nopqc,nopxc->noqx", uu, t1)
-        d_ry = torch.einsum("nopqc,noyqc->nopy", uu, t2)
-        ub = torch.einsum("nopqc,noqx->nopxc", uu, r_x)
-        d_img = torch.einsum("nopy,nopxc->nyxc", r_y, ub)
-    return d_img.to(imgs.dtype), d_ry.to(ry.dtype), d_rx.to(rx.dtype)
+        if needs[0]:
+            ub = torch.einsum("nopqc,noqx->nopxc", uu, r_x)
+            d_img = torch.einsum("nopy,nopxc->nyxc", r_y, ub).to(imgs.dtype)
+        if needs[1]:
+            t2 = torch.einsum("nyxc,noqx->noyqc", img, r_x)
+            d_ry = torch.einsum("nopqc,noyqc->nopy", uu, t2).to(ry.dtype)
+        if needs[2]:
+            t1 = torch.einsum("nopy,nyxc->nopxc", r_y, img)
+            d_rx = torch.einsum("nopqc,nopxc->noqx", uu, t1).to(rx.dtype)
+    return d_img, d_ry, d_rx
 
 
 def _check(ts, names) -> None:
@@ -89,54 +105,78 @@ def _shapes(imgs, ry, rx):
     if ry.shape != (n, o, hh, h) or rx.shape != (n, o, ww, w):
         raise ValueError(f"crop shapes disagree: imgs {tuple(imgs.shape)}, "
                          f"ry {tuple(ry.shape)}, rx {tuple(rx.shape)}")
+    if max(n * o * hh * ww * c, n * h * w * c) >= 2 ** 31 or n * o > 65535:
+        raise ValueError("crop kernels index outputs with 32-bit ints and "
+                         "take at most 65535 crops (N * O)")
     return n, h, w, c, o, hh, ww
+
+
+def _entry(symbol: str, n_ptrs: int):
+    """The crop library's C function ``symbol``: ``n_ptrs`` pointers, eight
+    ints, the stream; typed once (ctypes keeps the function object)."""
+    lib = _cuda.library("crop")
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib, fn
 
 
 def _launch_fwd(imgs, ry, rx) -> torch.Tensor:
     _check((imgs, ry, rx), ("imgs", "ry", "rx"))
     n, h, w, c, o, hh, ww = _shapes(imgs, ry, rx)
-    lib = _cuda.library("crop")
-    fn = lib.sg_crop_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib, fn = _entry("sg_crop_fwd", 5)
     out = torch.empty((n, o, hh, ww, c), dtype=imgs.dtype, device=imgs.device)
+    # The row spans of ry_o and rx_o: (first, last) nonzero column of each
+    # of the HH + WW rows.
+    spans = torch.empty((n, o, hh + ww, 2), dtype=torch.int32,
+                        device=imgs.device)
     stream = torch.cuda.current_stream(imgs.device).cuda_stream
     rc = fn(imgs.data_ptr(), ry.data_ptr(), rx.data_ptr(), out.data_ptr(),
-            n, h, w, c, o, hh, ww, _DTYPE_CODES[imgs.dtype], stream)
-    # A shape whose tiles exceed a block's shared memory is refused by the
-    # launch and raised here.
-    _cuda.check(lib, rc, f"crop forward kernel at W={w}, C={c}, WW={ww}")
+            spans.data_ptr(), n, h, w, c, o, hh, ww, _DTYPE_CODES[imgs.dtype],
+            stream)
+    _cuda.check(lib, rc, f"crop forward kernels at W={w}, C={c}, WW={ww}")
     _cuda.LAUNCHES["crop_fwd"] += 1
     return out
 
 
-def _launch_bwd(imgs, ry, rx, u):
+def _launch_bwd(imgs, ry, rx, u, needs: Needs) -> Grads:
     _check((imgs, ry, rx, u), ("imgs", "ry", "rx", "u"))
     n, h, w, c, o, hh, ww = _shapes(imgs, ry, rx)
     if u.shape != (n, o, hh, ww, c):
         raise ValueError(f"crop gradient {tuple(u.shape)} does not match the "
                          f"crops {(n, o, hh, ww, c)}")
-    lib = _cuda.library("crop")
-    fn = lib.sg_crop_bwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    d_img = torch.empty_like(imgs)
-    d_ry = torch.empty_like(ry)
-    d_rx = torch.empty_like(rx)
-    # f32 scratch: ry_o @ img and u_o . rx_o for every (n, o) row, (N,O,HH,W*C)
-    t1 = torch.empty((n, o, hh, w * c), dtype=torch.float32,
-                     device=imgs.device)
-    ub = torch.empty_like(t1)
+    dtype = _DTYPE_CODES[imgs.dtype]
     stream = torch.cuda.current_stream(imgs.device).cuda_stream
-    rc = fn(imgs.data_ptr(), ry.data_ptr(), rx.data_ptr(), u.data_ptr(),
-            d_img.data_ptr(), d_ry.data_ptr(), d_rx.data_ptr(), t1.data_ptr(),
-            ub.data_ptr(), n, h, w, c, o, hh, ww, _DTYPE_CODES[imgs.dtype],
-            stream)
-    _cuda.check(lib, rc, f"crop backward kernels at W={w}, C={c}, O={o}, "
-                f"HH={hh}, WW={ww}")
-    _cuda.LAUNCHES["crop_bwd"] += 1
+    d_img = d_ry = d_rx = None
+    if needs[0]:
+        lib, fn = _entry("sg_crop_bwd_img", 5)
+        d_img = torch.empty_like(imgs)
+        # The column spans of ry_o and rx_o: (first, last) nonzero row of
+        # each of the H + W columns.
+        spans = torch.empty((n, o, h + w, 2), dtype=torch.int32,
+                            device=imgs.device)
+        rc = fn(ry.data_ptr(), rx.data_ptr(), u.data_ptr(), d_img.data_ptr(),
+                spans.data_ptr(), n, h, w, c, o, hh, ww, dtype, stream)
+        _cuda.check(lib, rc, f"crop d_img kernels at W={w}, O={o}")
+        _cuda.LAUNCHES["crop_bwd"] += 1
+    if needs[1] or needs[2]:
+        lib, fn = _entry("sg_crop_bwd_boxes", 7)
+        d_ry = torch.empty_like(ry)
+        d_rx = torch.empty_like(rx)
+        # f32 scratch: ry_o @ img for every (n, o) row, (N, O, HH, W*C)
+        t1 = torch.empty((n, o, hh, w * c), dtype=torch.float32,
+                         device=imgs.device)
+        rc = fn(imgs.data_ptr(), ry.data_ptr(), rx.data_ptr(), u.data_ptr(),
+                d_ry.data_ptr(), d_rx.data_ptr(), t1.data_ptr(), n, h, w, c,
+                o, hh, ww, dtype, stream)
+        _cuda.check(lib, rc, f"crop d_ry/d_rx kernels at W={w}, C={c}, "
+                    f"HH={hh}, WW={ww}")
+        _cuda.LAUNCHES["crop_bwd_boxes"] += 1
+        # One pair of launches computes both; only what was asked goes back.
+        d_ry = d_ry if needs[1] else None
+        d_rx = d_rx if needs[2] else None
     return d_img, d_ry, d_rx
 
 
@@ -156,12 +196,16 @@ def crop_fwd(imgs: torch.Tensor, ry: torch.Tensor,
 
 
 def crop_bwd(imgs: torch.Tensor, ry: torch.Tensor, rx: torch.Tensor,
-             u: torch.Tensor):
+             u: torch.Tensor, needs: Needs = (True, True, True)) -> Grads:
     """The backward: its kernels on a CUDA tensor, its plain version on a
-    CPU tensor. Returns (d_imgs, d_ry, d_rx)."""
+    CPU tensor. Returns (d_imgs, d_ry, d_rx), ``None`` for each gradient
+    whose entry of ``needs`` is false."""
+    if len(needs) != 3:
+        raise ValueError(f"needs takes three flags (imgs, ry, rx), got "
+                         f"{needs}")
     if _on(imgs, "crop") == "cpu":
-        return crop_bwd_plain(imgs, ry, rx, u)
-    return _launch_bwd(imgs, ry, rx, u)
+        return crop_bwd_plain(imgs, ry, rx, u, needs)
+    return _launch_bwd(imgs, ry, rx, u, needs)
 
 
 class _Crop(torch.autograd.Function):
@@ -173,11 +217,9 @@ class _Crop(torch.autograd.Function):
     @staticmethod
     def backward(ctx, u):
         imgs, ry, rx = ctx.saved_tensors
-        # One launch computes all three gradients, as the TPU kernel does;
-        # those nobody asked for are dropped.
-        grads = crop_bwd(imgs, ry, rx, u.contiguous())
-        return tuple(g if need else None
-                     for g, need in zip(grads, ctx.needs_input_grad))
+        # Only the gradients autograd asks for: in training the boxes are
+        # batch constants, so d_ry and d_rx are never launched.
+        return crop_bwd(imgs, ry, rx, u.contiguous(), ctx.needs_input_grad)
 
 
 def crop(imgs: torch.Tensor, ry: torch.Tensor,

@@ -8,6 +8,9 @@ around the TPU backward kernel) for all three cotangents; the
 ``autograd.Function`` by ``gradcheck`` in f64; and the box gradients
 through ``crop_matrices`` against ``jax.grad``. Tolerances: 1e-5 absolute
 on f32 values of order 1 (the same products summed in another order).
+The backward computes only the gradients asked for (``needs``); and at the
+train shapes the hats are banded, the property the card's kernels rely on
+for their speed.
 """
 import numpy as np
 import pytest
@@ -20,8 +23,10 @@ from scene_generation_tpu.ops.crop import uncrop_bbox as jax_uncrop
 from scene_generation_tpu.ops.images import wire_to_float as jax_wire
 from scene_generation_tpu.ops.pallas.crop import crop_pallas
 from scene_generation_tpu.ops.sampling import crop_matrices as jax_matrices
+from scene_generation_tpu_torch.config import Config
+from scene_generation_tpu_torch.data import synthetic_batch
 from scene_generation_tpu_torch.ops.crop import (crop, crop_bbox_batch,
-                                                 crop_bwd_plain,
+                                                 crop_bwd, crop_bwd_plain,
                                                  crop_fwd_plain, uncrop_bbox)
 from scene_generation_tpu_torch.ops.images import wire_to_float
 from scene_generation_tpu_torch.ops.sampling import (bilinear_sample_gather,
@@ -137,3 +142,79 @@ def test_uncrop_and_wire_format_match_jax():
                                atol=1e-7)
     flt = torch.rand(2, 3)
     assert wire_to_float(flt) is flt
+
+
+@pytest.mark.parametrize("hh", [64, 32])
+def test_crop_matrices_are_banded_at_the_train_shapes(hh):
+    """Every row of the hats holds at most two nonzeros and every column's
+    nonzeros are one contiguous run of crop indices, for the synthetic
+    batch's boxes and for edge boxes: degenerate, flipped, partly out of
+    frame, wholly out of frame, and samples on grid lines."""
+    cfg = Config()
+    h, w = cfg.model.image_size
+    boxes = synthetic_batch(cfg, seed=6, batch_size=12).boxes.copy()
+    on_grid = (hh - 1) / (h - 1)
+    boxes[0, :6] = [[0.4, 0.4, 0.4, 0.7],           # degenerate in x
+                    [0.7, 0.2, 0.3, 0.6],           # flipped in x
+                    [-0.2, 0.5, 0.3, 1.3],          # partly out of frame
+                    [0.8, -0.3, 1.4, 0.4],
+                    [1.2, 1.1, 1.7, 1.9],           # out of frame
+                    [0.0, 0.0, on_grid, on_grid]]   # on grid lines
+    ry, rx = crop_matrices(torch.from_numpy(boxes), hh, hh, h, w)
+    assert ry.shape == (12, cfg.data.max_objs, hh, h)
+    for m in (ry, rx):
+        nz = m != 0
+        assert int(nz.sum(-1).max()) <= 2
+        runs = nz[..., :1, :].int() + (nz[..., 1:, :] & ~nz[..., :-1, :]).sum(
+            -2, keepdim=True)
+        assert int(runs.max()) <= 1
+    # The degenerate box's column spans every crop row; the out-of-frame
+    # box has none.
+    assert int((rx[0, 0] != 0).sum(0).max()) == hh
+    assert not bool((ry[0, 4] != 0).any())
+
+
+@pytest.mark.parametrize("needs", [
+    (True, False, False), (False, True, False), (False, False, True),
+    (True, True, False), (True, False, True), (False, True, True),
+    (False, False, False)])
+def test_crop_bwd_returns_only_what_was_asked(needs):
+    imgs, boxes = _case(9)
+    ry, rx = crop_matrices(torch.from_numpy(boxes), 8, 12, 32, 24)
+    u = torch.from_numpy(
+        np.random.RandomState(10).randn(2, 4, 8, 12, 3).astype(np.float32))
+    imgs = torch.from_numpy(imgs)
+    full = crop_bwd(imgs, ry, rx, u)
+    got = crop_bwd(imgs, ry, rx, u, needs)
+    for name, g, f, need in zip(("d_imgs", "d_ry", "d_rx"), got, full, needs):
+        if need:
+            assert torch.equal(g, f), name
+        else:
+            assert g is None, name
+
+
+@pytest.mark.parametrize("needs", [(True, False, False), (False, True, True),
+                                   (True, False, True)])
+def test_function_backward_with_partial_needs(needs):
+    """``crop``'s backward on inputs of which only some require grad: the
+    gradients asked for match ``jax.vjp`` of ``crop_pallas`` (f32) and pass
+    ``gradcheck`` (f64)."""
+    imgs, boxes = _case(11)
+    ry, rx = jax_matrices(jnp.asarray(boxes), 8, 12, 32, 24)
+    u = np.random.RandomState(12).randn(2, 4, 8, 12, 3).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: crop_pallas(True, a, b, c),
+                     jnp.asarray(imgs), ry, rx)
+    want = vjp(jnp.asarray(u))
+    ins = [torch.from_numpy(np.array(a)).requires_grad_(need)
+           for a, need in zip((imgs, ry, rx), needs)]
+    asked = [t for t in ins if t.requires_grad]
+    got = torch.autograd.grad((crop(*ins) * torch.from_numpy(u)).sum(), asked)
+    for a, b in zip(got, [b for b, need in zip(want, needs) if need]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-5,
+                                   rtol=1e-5)
+
+    rng = np.random.RandomState(13)
+    ins = [torch.from_numpy(a).requires_grad_(need) for a, need in zip(
+        (rng.randn(2, 6, 5, 2), rng.rand(2, 3, 4, 6), rng.rand(2, 3, 3, 5)),
+        needs)]
+    assert torch.autograd.gradcheck(crop, ins)

@@ -15,9 +15,9 @@ from scene_generation_tpu_torch.models.layers import avg_pool_3x3_s2
 from scene_generation_tpu_torch.ops import _cuda
 from scene_generation_tpu_torch.ops.compositor import (composite,
                                                        composite_plain)
-from scene_generation_tpu_torch.ops.crop import (crop, crop_bwd,
-                                                 crop_bwd_plain, crop_fwd,
-                                                 crop_fwd_plain)
+from scene_generation_tpu_torch.ops.crop import (crop, crop_bbox_batch,
+                                                 crop_bwd, crop_bwd_plain,
+                                                 crop_fwd, crop_fwd_plain)
 from scene_generation_tpu_torch.ops.layout import compositor_inputs
 from scene_generation_tpu_torch.ops.sampling import crop_matrices
 from scene_generation_tpu_torch.ops.stem import stem, stem_plain
@@ -175,31 +175,132 @@ def test_crop_kernels_match_plain(device, dtype, shape):
     got = crop_fwd(imgs, ry, rx)
     grads = crop_bwd(imgs, ry, rx, u)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["crop_fwd"] == before.get("crop_fwd", 0) + 1
-    assert _cuda.LAUNCHES["crop_bwd"] == before.get("crop_bwd", 0) + 1
-    want = crop_fwd_plain(imgs, ry, rx)
-    want_grads = crop_bwd_plain(imgs, ry, rx, u)
-    # f32: the same products summed in another order; bf16: both round one
-    # f32 sum to bf16.
-    for a, b in zip((got, *grads), (want, *want_grads)):
-        a, b = a.float(), b.float()
-        scale = float(b.abs().max())
-        tol = 1e-5 * max(scale, 1.0) if dtype == torch.float32 else \
-            2 ** -7 * scale
-        assert torch.isfinite(a).all()
-        assert float((a - b).abs().max()) <= tol
+    for name in ("crop_fwd", "crop_bwd", "crop_bwd_boxes"):
+        assert _cuda.LAUNCHES[name] == before.get(name, 0) + 1, name
+    _assert_crop_matches_plain(imgs, ry, rx, u, got, grads)
     again = crop_bwd(imgs, ry, rx, u)
     for a, b in zip(grads, again):
         assert torch.equal(a, b)        # no atomics: bitwise repeatable
 
 
+def _assert_crop_matches_plain(imgs, ry, rx, u, got, grads):
+    """Forward and backward against the plain versions. f32: the same
+    products summed in another order; bf16: both round one f32 sum to
+    bf16."""
+    want = crop_fwd_plain(imgs, ry, rx)
+    want_grads = crop_bwd_plain(imgs, ry, rx, u)
+    for name, a, b in zip(("out", "d_img", "d_ry", "d_rx"), (got, *grads),
+                          (want, *want_grads)):
+        a, b = a.float(), b.float()
+        scale = float(b.abs().max())
+        tol = 1e-5 * max(scale, 1.0) if imgs.dtype == torch.float32 else \
+            2 ** -7 * scale
+        assert torch.isfinite(a).all(), name
+        assert float((a - b).abs().max()) <= tol, name
+
+
+def _edge_boxes(o):
+    """Degenerate in x and in y, flipped in x and in y, partly and wholly
+    out of frame, samples on grid lines (x0 = 0 at 128 px and 32 px crops
+    step 4 pixels), then ordinary boxes."""
+    boxes = np.array([[0.4, 0.2, 0.4, 0.7], [0.1, 0.5, 0.6, 0.5],
+                      [0.7, 0.2, 0.3, 0.6], [0.2, 0.9, 0.6, 0.1],
+                      [-0.2, 0.5, 0.3, 1.3], [0.8, -0.3, 1.4, 0.4],
+                      [1.2, 1.1, 1.7, 1.9], [0.0, 0.0, 124 / 127, 124 / 127],
+                      [0.25, 0.3, 0.75, 0.9]], np.float32)
+    return boxes[np.arange(o) % len(boxes)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hh", [64, 32])
+def test_crop_kernels_match_plain_on_edge_hats(device, dtype, hh):
+    rng = np.random.RandomState(3)
+    n, o = 2, 9
+    boxes = torch.from_numpy(np.stack([_edge_boxes(o), _edge_boxes(o)[::-1]]))
+    imgs = torch.from_numpy(rng.uniform(-1, 1, (n, 128, 128, 3)).astype(
+        np.float32)).to(device, dtype)
+    ry, rx = crop_matrices(boxes.to(device, dtype), hh, hh, 128, 128)
+    ry, rx = ry.contiguous(), rx.contiguous()
+    u = torch.from_numpy(rng.randn(n, o, hh, hh, 3).astype(np.float32)).to(
+        device, dtype)
+    got = crop_fwd(imgs, ry, rx)
+    _assert_crop_matches_plain(imgs, ry, rx, u, got, crop_bwd(imgs, ry, rx, u))
+
+
+def _dense_case(device, dtype, kind, n=2, h=24, w=40, c=3, o=3, hh=16,
+                ww=12, seed=4):
+    """Random dense ry, rx ('dense'), or the same with holes: zeros inside
+    rows' spans and whole rows and columns of zeros ('holes')."""
+    rng = np.random.RandomState(seed)
+    ry = rng.randn(n, o, hh, h).astype(np.float32)
+    rx = rng.randn(n, o, ww, w).astype(np.float32)
+    if kind == "holes":
+        for m in (ry, rx):
+            m[rng.rand(*m.shape) < 0.5] = 0.0
+            m[:, :, 1] = 0.0                       # rows of zeros
+            m[:, :, :, 2:5] = 0.0                  # columns of zeros
+            m[0, 1] = 0.0                          # a matrix of zeros
+    t = lambda a: torch.from_numpy(a).to(device, dtype)  # noqa: E731
+    return (t(rng.uniform(-1, 1, (n, h, w, c)).astype(np.float32)), t(ry),
+            t(rx), t(rng.randn(n, o, hh, ww, c).astype(np.float32)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["dense", "holes"])
+def test_crop_kernels_match_plain_on_dense_matrices(device, dtype, kind):
+    imgs, ry, rx, u = _dense_case(device, dtype, kind)
+    got = crop_fwd(imgs, ry, rx)
+    _assert_crop_matches_plain(imgs, ry, rx, u, got, crop_bwd(imgs, ry, rx, u))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_crop_d_img_alone_is_bitwise_the_full_backward(device, dtype):
+    imgs, ry, rx, u = _crop_case(device, dtype, 12, 128, 128, 3, 9, 32, 32)
+    before = dict(_cuda.LAUNCHES)
+    alone = crop_bwd(imgs, ry, rx, u, needs=(True, False, False))
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["crop_bwd"] == before.get("crop_bwd", 0) + 1
+    assert _cuda.LAUNCHES["crop_bwd_boxes"] == before.get("crop_bwd_boxes", 0)
+    assert alone[1] is None and alone[2] is None
+    full = crop_bwd(imgs, ry, rx, u)
+    assert torch.equal(alone[0], full[0])
+    boxes_only = crop_bwd(imgs, ry, rx, u, needs=(False, True, False))
+    assert boxes_only[0] is None and boxes_only[2] is None
+    assert torch.equal(boxes_only[1], full[1])
+
+
+def test_crop_box_gradient_matches_the_cpu(device):
+    """Gradients reach the boxes through crop_matrices and the d_ry / d_rx
+    kernels; on the card they match the CPU's plain backward."""
+    rng = np.random.RandomState(5)
+    imgs = rng.uniform(-1, 1, (2, 32, 48, 3)).astype(np.float32)
+    boxes = np.stack([_edge_boxes(5), _edge_boxes(9)[4:]])
+    target = rng.randn(2, 5, 8, 12, 3).astype(np.float32)
+    grads = []
+    for dev in (device, torch.device("cpu")):
+        im = torch.from_numpy(imgs).to(dev).requires_grad_(True)
+        bx = torch.from_numpy(boxes).to(dev).requires_grad_(True)
+        before = _cuda.LAUNCHES["crop_bwd_boxes"]
+        loss = (crop_bbox_batch(im, bx, 8, 12)
+                * torch.from_numpy(target).to(dev)).sum()
+        grads.append([g.cpu() for g in torch.autograd.grad(loss, (im, bx))])
+        assert _cuda.LAUNCHES["crop_bwd_boxes"] == before + (
+            dev.type == "cuda")
+    for a, b in zip(*grads):
+        scale = float(b.abs().max())
+        assert scale > 0
+        assert float((a - b).abs().max()) <= 1e-5 * max(scale, 1.0)
+
+
 def test_crop_function_backward_is_the_kernel(device):
     imgs, ry, rx, u = _crop_case(device, torch.float32, 2, 32, 32, 3, 4, 8, 8)
     imgs.requires_grad_(True)
-    before = _cuda.LAUNCHES["crop_bwd"]
+    before = dict(_cuda.LAUNCHES)
     (crop(imgs, ry, rx) * u).sum().backward()
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["crop_bwd"] == before + 1
+    assert _cuda.LAUNCHES["crop_bwd"] == before.get("crop_bwd", 0) + 1
+    # The boxes need no gradient: the d_ry / d_rx kernels stay idle.
+    assert _cuda.LAUNCHES["crop_bwd_boxes"] == before.get("crop_bwd_boxes", 0)
     want = crop_bwd_plain(imgs.detach(), ry, rx, u)[0]
     assert float((imgs.grad - want).abs().max()) <= 1e-5
 
