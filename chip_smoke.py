@@ -6,10 +6,11 @@
 Builds the port's CUDA kernels from ``scene_generation_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the shapes of its path
 (the stem and the compositor at the serving shapes, the crop forward and
-backward at the train shapes, timed by CUDA events around a call and by
-the profiler's device time), checks that the forward-only kernels refuse
-inputs that require grad, serves HTTP requests and a batch-16 forward
-through the default ``Config()`` (the factored stem, bf16), runs the
+backward at the train shapes, timed by CUDA events around a call and, for
+the stem and the crop, by the profiler's device time), checks that the
+forward-only kernels refuse inputs that require grad, serves HTTP requests
+and a batch-16 forward through the default ``Config()`` (the factored
+stem, bf16: the tensor-core stem kernel), runs the
 dense-stem variant (the compositor kernel), compares the card with the CPU
 in f32, and times serving (CUDA events, then a ``torch.profiler``
 breakdown of the device's time). Then it trains: a few steps of the
@@ -21,9 +22,15 @@ before printing any result.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --stem
+
+builds and checks the stem kernel alone (its phase and its device times)
+and prints no result line: the quick loop while working on the stem.
 """
 from __future__ import annotations
 
+import argparse
 import base64
 import contextlib
 import dataclasses
@@ -147,28 +154,39 @@ def stem_inputs(cfg: Config, dtype, seed=1):
     return w.to("cuda", dtype), g.to("cuda", dtype)
 
 
+def stem_library_call(w, g):
+    """One grouped conv that computes the stem on the same inputs (never
+    called by the port): the library yardstick. Returns NCHW."""
+    n, hp, wp, o = w.shape
+    c = g.shape[-1]
+    x_lib = w.permute(0, 3, 1, 2).reshape(1, n * o, hp, wp).contiguous()
+    k_lib = g.permute(0, 4, 3, 1, 2).reshape(n * c, o, 7, 7).contiguous()
+    return lambda: torch.nn.functional.conv2d(x_lib, k_lib, groups=n)
+
+
 def check_stem(cfg: Config) -> dict:
+    """The stem kernel against its plain version at the serving shape, f32
+    (the CUDA-core kernel) and bf16 (the tensor-core kernel, twice, bitwise
+    equal), timed by CUDA events beside the plain version and the
+    grouped-conv yardstick. Device times come last (``stem_device_times``)."""
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         w, g = stem_inputs(cfg, dtype)
         got = stem(w, g)
+        again = stem(w, g)
         want = stem_plain(w, g)
         torch.cuda.synchronize()
+        check(torch.equal(got, again),
+              f"stem kernel {dtype} is not bitwise repeatable")
         err = float((got.float() - want.float()).abs().max())
-        # f32: 441-term sums in another order; bf16: both round their f32
-        # sums to bf16, one ulp apart at most.
+        # f32: 441-term sums in another order; bf16: both sum exact bf16
+        # products in f32 and round to bf16 once, one ulp apart at most.
         tol = 1e-4 if dtype == torch.float32 else 2 ** -7 * float(
             want.float().abs().max())
         check(err <= tol, f"stem kernel {dtype}: max abs err {err} > {tol}")
         n, hp, wp, o = w.shape
         c = g.shape[-1]
-        # One grouped conv computes the same function: the library yardstick.
-        x_lib = w.permute(0, 3, 1, 2).reshape(1, n * o, hp, wp).contiguous()
-        k_lib = g.permute(0, 4, 3, 1, 2).reshape(n * c, o, 7, 7).contiguous()
-
-        def library():
-            return torch.nn.functional.conv2d(x_lib, k_lib, groups=n)
-
+        library = stem_library_call(w, g)
         lib_err = float((library().reshape(n, c, hp - 6, wp - 6).permute(
             0, 2, 3, 1).float() - want.float()).abs().max())
         check(lib_err <= tol, f"grouped-conv yardstick disagrees: {lib_err}")
@@ -484,6 +502,23 @@ def check_crop(cfg: Config) -> dict:
     return rows
 
 
+def stem_device_times(cfg: Config, rows: dict) -> None:
+    """Each stem row's device time per call and its grouped-conv
+    yardstick's (the profiler's own kernel times), added to ``rows``; run
+    after every end-to-end phase, as ``crop_device_times`` is."""
+    for dtype in (torch.float32, torch.bfloat16):
+        w, g = stem_inputs(cfg, dtype)
+        dev = device_kernels_ms(lambda: stem(w, g))
+        lib = device_kernels_ms(stem_library_call(w, g))
+        row = rows[dtype]
+        row.update(device_ms=device_total_ms(dev), device_kernels=dev,
+                   library_device_ms=device_total_ms(lib),
+                   library_device_kernels=lib)
+        say("kernel stem device", dtype=str(dtype), device_ms=row["device_ms"],
+            device_kernels=dev, library_device_ms=row["library_device_ms"],
+            library_device_kernels=lib, bound_ms=row["bound_ms"])
+
+
 def crop_device_times(cfg: Config, rows: dict) -> None:
     """Each crop row's device time per call and its library call's (the
     profiler's own kernel times), added to ``rows``. It runs after every
@@ -683,6 +718,8 @@ def serve_and_forward(ckpt: str) -> dict:
           f"imgs_pred {tuple(out.imgs_pred.shape)}")
     check_images(out.imgs_pred, "serving b16")
     check(launches.get("stem", 0) > 0, f"stem kernel not launched: {launches}")
+    check(launches.get("stem_tc", 0) > 0,
+          f"bf16 serving did not run the tensor-core stem: {launches}")
     check(launches.get("compositor", 0) == 0,
           f"factored path launched the compositor: {launches}")
     say("serving", requests=len(graphs), batch=BATCH, launches=launches,
@@ -1011,7 +1048,11 @@ def generator_f64() -> None:
         leaves=len(grads["cpu"]))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--stem", action="store_true",
+                        help="build and check the stem kernel alone")
+    args = parser.parse_args(argv)
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -1029,12 +1070,15 @@ def main() -> int:
     print(smi, flush=True)
 
     t = time.perf_counter()
-    built = _cuda.build()
+    built = _cuda.build(["stem"] if args.stem else _cuda.KERNELS)
     say("build", seconds=time.perf_counter() - t,
         per_kernel={k: v["seconds"] for k, v in built.items()})
 
     cfg = with_model(Config(), compute_dtype="bfloat16")
     stem_rows = check_stem(cfg)
+    if args.stem:
+        stem_device_times(cfg, stem_rows)
+        return 0
     comp_rows = check_compositor(cfg)
     crop_rows = check_crop(Config())
     check_forward_only_guards()
@@ -1066,6 +1110,7 @@ def main() -> int:
         train = train_on_card()
     train_card_vs_cpu()
     generator_f64()
+    stem_device_times(cfg, stem_rows)
     crop_device_times(Config(), crop_rows)
 
     def row(name, src, replaces, launches, r):
@@ -1073,12 +1118,14 @@ def main() -> int:
                     launches=launches, max_abs_err=r["max_abs_err"],
                     ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                    library_ms=r["library_ms"])
+                    library_ms=r["library_ms"],
+                    **{k: r[k] for k in ("device_ms", "library_device_ms")
+                       if k in r})
 
     kernels = [
         row("stem", "scene_generation_tpu_torch/csrc/stem.cu",
             "scene_generation_tpu/ops/pallas/stem.py:47",
-            serve_launches["stem"], stem_rows[torch.bfloat16]),
+            serve_launches["stem_tc"], stem_rows[torch.bfloat16]),
         row("compositor", "scene_generation_tpu_torch/csrc/compositor.cu",
             "scene_generation_tpu/ops/pallas/compositor.py:48",
             dense_launches["compositor"], comp_rows[torch.bfloat16]),

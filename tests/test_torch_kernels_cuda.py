@@ -50,16 +50,90 @@ def test_stem_kernel_matches_plain(device, dtype, o, c, h):
         np.float32)).to(device, dtype)
     g_t = torch.from_numpy(rng.randn(3, 7, 7, o, c).astype(
         np.float32)).to(device, dtype)
-    before = _cuda.LAUNCHES["stem"]
+    before = dict(_cuda.LAUNCHES)
     got = stem(w_t, g_t).float()
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["stem"] == before + 1
+    assert _cuda.LAUNCHES["stem"] == before.get("stem", 0) + 1
+    # bf16 runs the tensor-core kernel, f32 the CUDA-core one.
+    assert _cuda.LAUNCHES["stem_tc"] == before.get("stem_tc", 0) + (
+        dtype == torch.bfloat16)
     want = stem_plain(w_t.float(), g_t.float())
     # f32: sums of 49*O products in another order; bf16: the output's
     # rounding (2^-8 relative) on top.
     tol = 1e-3 if dtype == torch.float32 else 2 ** -7 * float(
         want.abs().max())
     assert float((got - want).abs().max()) <= tol
+
+
+def _bf16_stem_case(device, n, h, w, o, c, scale=1.0, seed=0):
+    rng = np.random.RandomState(seed)
+    w_t = torch.from_numpy(scale * rng.uniform(-1, 1, (n, h + 6, w + 6, o)))
+    g_t = torch.from_numpy(scale * rng.uniform(-1, 1, (n, 7, 7, o, c)))
+    return (w_t.to(device, torch.bfloat16).contiguous(),
+            g_t.to(device, torch.bfloat16).contiguous())
+
+
+def _assert_bf16_stem_matches_plain(w_t, g_t, got):
+    """Both sides sum exact bf16 products in f32 and round once: within
+    2^-7 of the largest output."""
+    want = stem_plain(w_t.float(), g_t.float())
+    assert got.shape == want.shape
+    assert torch.isfinite(got).all()
+    assert float((got.float() - want).abs().max()) <= 2 ** -7 * float(
+        want.abs().max())
+
+
+# (N, H, W, O, C): every ragged edge of the tensor-core kernel's tiles: H
+# not a multiple of its 8 rows, W not a multiple of its 16-pixel tiles
+# (and W != H: (N, H+6, W+6) = (2, 26, 126)), C not a multiple of 8 or of
+# its 64-channel pass (odd C too), O = 1 (7*O = 7 of 16 k), O = 9 (63 of
+# 64) and O = 10 (70 of 80, rows of 128 k).
+STEM_TC_SHAPES = [(2, 20, 120, 9, 64), (1, 127, 127, 9, 64),
+                  (1, 150, 40, 1, 4), (2, 20, 150, 1, 6), (1, 127, 72, 9, 72),
+                  (1, 21, 130, 5, 9), (2, 9, 17, 10, 24), (16, 8, 16, 9, 64)]
+
+
+@pytest.mark.parametrize("shape", STEM_TC_SHAPES)
+def test_stem_tc_kernel_matches_plain_on_ragged_edges(device, shape):
+    w_t, g_t = _bf16_stem_case(device, *shape)
+    before = _cuda.LAUNCHES["stem_tc"]
+    got = stem(w_t, g_t)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["stem_tc"] == before + 1
+    _assert_bf16_stem_matches_plain(w_t, g_t, got)
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+def test_stem_tc_kernel_takes_inputs_at_any_element_offset(device, offset):
+    """Contiguous views that start off a 16-byte boundary: the kernel's
+    bulk copies align their chunks to the source."""
+    w_t, g_t = _bf16_stem_case(device, 2, 20, 33, 9, 16)
+    views = []
+    for t in (w_t, g_t):
+        flat = torch.zeros(t.numel() + offset, dtype=t.dtype, device=device)
+        flat[offset:] = t.reshape(-1)
+        views.append(flat[offset:].view(t.shape))
+    assert views[0].data_ptr() % 16 != 0 and views[0].is_contiguous()
+    got = stem(*views)
+    torch.cuda.synchronize()
+    assert torch.equal(got, stem(w_t, g_t))
+    _assert_bf16_stem_matches_plain(w_t, g_t, got)
+
+
+def test_stem_tc_kernel_is_bitwise_repeatable(device):
+    w_t, g_t = _bf16_stem_case(device, 16, 128, 128, 9, 64)
+    first = stem(w_t, g_t)
+    assert torch.equal(first, stem(w_t, g_t))
+
+
+def test_stem_tc_kernel_at_the_edge_of_the_bf16_range(device):
+    """Field and taps up to +-1e3: sums near 1e7 stay finite and exact to
+    the output's rounding."""
+    w_t, g_t = _bf16_stem_case(device, 2, 32, 48, 9, 64, scale=1e3, seed=1)
+    got = stem(w_t, g_t)
+    torch.cuda.synchronize()
+    assert float(w_t.float().abs().max()) > 990
+    _assert_bf16_stem_matches_plain(w_t, g_t, got)
 
 
 def _compositor_case(device, dtype, n, o, d, m, h, w):
@@ -125,6 +199,10 @@ def test_kernels_refuse_what_they_do_not_take(device):
     with pytest.raises(RuntimeError, match="stem kernel"):
         stem(torch.rand(1, 518, 518, 40, device=device),
              torch.rand(1, 7, 7, 40, 4, device=device))
+    # The bf16 kernel's field (8 rows x 518 pixels x 64 k) exceeds it too.
+    with pytest.raises(RuntimeError, match="stem kernel"):
+        stem(torch.rand(1, 518, 518, 9, device=device).bfloat16(),
+             torch.rand(1, 7, 7, 9, 4, device=device).bfloat16())
     got = stem(w_t, g_t)
     torch.cuda.synchronize()
     assert float((got - stem_plain(w_t, g_t)).abs().max()) <= 1e-4
