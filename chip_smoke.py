@@ -6,27 +6,28 @@
 Builds the port's CUDA kernels from ``scene_generation_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the shapes of its path
 (the stem and the compositor at the serving shapes, the crop forward and
-backward at the train shapes, timed by CUDA events around a call and, for
-the stem and the crop, by the profiler's device time), checks that the
-forward-only kernels refuse inputs that require grad, serves HTTP requests
-and a batch-16 forward through the default ``Config()`` (the factored
-stem, bf16: the tensor-core stem kernel), runs the
-dense-stem variant (the compositor kernel), compares the card with the CPU
-in f32, and times serving (CUDA events, then a ``torch.profiler``
-breakdown of the device's time). Then it trains: a few steps of the
-default ``Config()`` at batch 12 through the port's train loop (the crop
-kernels; the box gradients' kernels must not run), timed and profiled, and one f32 train step on the card against
-the same step on the CPU. Every phase prints one line; any failure raises
-and the exit code is non-zero. Without a CUDA device it exits non-zero
-before printing any result.
+backward at the train shapes, timed by CUDA events around a call and by
+the profiler's device time), checks that the forward-only kernels refuse
+inputs that require grad, serves HTTP requests and a batch-16 forward
+through the default ``Config()`` (the factored stem, bf16: the
+tensor-core stem kernel), runs the dense-stem variant (the compositor
+kernel) and the GT-appearance forward (``forward_batch(features=None)``:
+the crop forward kernel), compares the card with the CPU in f32, and
+times serving (CUDA events, then a ``torch.profiler`` breakdown of the
+device's time). Then it trains: a few steps of the default ``Config()``
+at batch 12 through the port's train loop (the crop kernels; the box
+gradients' kernel must not run), timed and profiled, and one f32 train
+step on the card against the same step on the CPU. Every phase prints one
+line; any failure raises and the exit code is non-zero. Without a CUDA
+device it exits non-zero before printing any result.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py --stem
+    python3 chip_smoke.py --only {stem,compositor,crop}
 
-builds and checks the stem kernel alone (its phase and its device times)
-and prints no result line: the quick loop while working on the stem.
+builds and checks one kernel alone (its phase and its device times) and
+prints no result line: the quick loop while working on a kernel.
 """
 from __future__ import annotations
 
@@ -138,6 +139,20 @@ def bound(flops: float, nbytes: float, dtype: torch.dtype):
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def smi(query: str) -> str:
+    """One ``nvidia-smi --query-gpu`` reading of card 0."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def sm_clock() -> str:
+    """The SM clock now, read beside a device time: under sustained load a
+    card may run below its top clock."""
+    return smi("clocks.sm")
 
 
 # --- phase 3: kernels against their plain versions --------------------------
@@ -336,35 +351,45 @@ def grid_sample_inputs(imgs, boxes, u):
 
 
 D_IMG_ONLY = (True, False, False)        # the train path's crop backward
+BOXES_ONLY = (False, True, True)         # the box gradients' kernel alone
 EVERY_GRAD = (True, True, True)
+# The crop rows: the backward of each gradient set, and the suffix of its
+# gradients' names in the error records.
+CROP_BWD_ROWS = (("crop_bwd", D_IMG_ONLY, "_alone"),
+                 ("crop_bwd_boxes", BOXES_ONLY, "_boxes_only"),
+                 ("crop_bwd_all", EVERY_GRAD, ""))
 
 
 def crop_library_calls(imgs, boxes, u) -> dict:
     """One PyTorch call per crop row that computes the same function on the
     same inputs (never called by the port): ``F.grid_sample`` for the
     forward, ``grid_sampler_2d_backward`` with the input gradient only for
-    the d_img backward, and with the grid's too for all three gradients."""
+    the d_img backward, the grid's only for the box gradients, and both
+    for all three gradients."""
     inp, grid, grad = grid_sample_inputs(imgs, boxes, u)
 
-    def backward(with_grid):
+    def backward(with_input, with_grid):
         return lambda: torch.ops.aten.grid_sampler_2d_backward(
-            grad, inp, grid, 0, 0, True, [True, with_grid])
+            grad, inp, grid, 0, 0, True, [with_input, with_grid])
 
     return {"crop_fwd": lambda: torch.nn.functional.grid_sample(
                 inp, grid, mode="bilinear", padding_mode="zeros",
                 align_corners=True),
-            "crop_bwd": backward(False), "crop_bwd_all": backward(True)}
+            "crop_bwd": backward(True, False),
+            "crop_bwd_boxes": backward(False, True),
+            "crop_bwd_all": backward(True, True)}
 
 
 def crop_work(imgs, ry, rx, u, out, needs=None):
     """(operations, bytes) that the crop forward (``needs`` None) or
     backward needs on these inputs, ``out`` its outputs: operations from
     the nonzeros of ry and rx (counted on the card), bytes with each input
-    read once and each output written once. Per (n, o) and channel, with t = ry img and
-    ub = u rx restricted to the rows and columns that hold a nonzero:
-    forward and d_img 2 (nnz(ry) cols(rx) + rows(ry) nnz(rx)); d_ry adds
-    the dense 2 HH H cols(rx) (and ub on every row), d_rx the dense
-    2 WW W rows(ry) (and t on every column)."""
+    read once and each output written once. Per (n, o) and channel, with
+    t1 = ry img and t2 = img rx^T restricted to the rows and columns that
+    hold a nonzero: forward and d_img 2 (nnz(ry) cols(rx) + rows(ry)
+    nnz(rx)); the box gradients add t1 and t2 on every image row and
+    column, 2 (nnz(ry) W + nnz(rx) H), then d_ry the dense 2 HH H rows(rx)
+    and d_rx the dense 2 WW W rows(ry)."""
     c = imgs.shape[-1]
     hh, h = ry.shape[-2:]
     ww, w = rx.shape[-2:]
@@ -372,47 +397,51 @@ def crop_work(imgs, ry, rx, u, out, needs=None):
     nnz_y = nz_y.sum((-1, -2)).double()
     nnz_x = nz_x.sum((-1, -2)).double()
     rows_y = nz_y.any(-1).sum(-1).double()       # crop rows that sample
+    rows_x = nz_x.any(-1).sum(-1).double()       # crop columns that sample
     cols_x = nz_x.any(-2).sum(-1).double()       # image columns sampled
     banded = nnz_y * cols_x + rows_y * nnz_x
     if needs is None:
         return float(2 * c * banded.sum()), nbytes(imgs, ry, rx, *out)
     ops = banded if needs[0] else 0.0
     if needs[1] or needs[2]:
-        ops = ops + nnz_y * w + hh * nnz_x + hh * h * cols_x + ww * w * rows_y
+        ops = ops + nnz_y * w + nnz_x * h + hh * h * rows_x + ww * w * rows_y
     read = (ry, rx, u) + ((imgs,) if needs[1] or needs[2] else ())
     return float(2 * c * ops.sum()), nbytes(*read, *out)
 
 
 def dense_crop_flops(imgs, ry, rx, needs=None) -> float:
     """The dense products' operations (the bound PR 2 counted): forward
-    ry img then rx; backward t1, ub, d_ry, d_rx, d_img."""
+    ry img then rx; backward ub (d_img and d_ry), d_img, d_ry, t1 and
+    d_rx (both box gradients are formed when either is asked for)."""
     n, h, w, c = imgs.shape
     o, hh, ww = ry.shape[1], ry.shape[2], rx.shape[2]
     per = 2.0 * n * o * c
     if needs is None:
         return per * (hh * h * w + hh * w * ww)
-    if needs[1] or needs[2]:
-        return per * hh * w * (2 * ww + 3 * h)
-    return per * hh * w * (ww + h)                     # ub, d_img
+    boxes = needs[1] or needs[2]
+    return per * hh * w * ((ww if needs[0] or boxes else 0)
+                           + (h if needs[0] else 0)
+                           + (2 * h + ww if boxes else 0))
 
 
 def check_crop(cfg: Config) -> dict:
     """Both crop kernels against their plain versions at the train shapes
     (HH = WW = 64, the appearance crops, and 32, D_obj's), f32 and bf16:
-    the forward, the main path's backward (d_img only) and the backward of
-    all three gradients, each backward twice, bitwise equal. Times by CUDA
-    events against the plain versions, the bound (operations counted from
-    the hats' nonzeros; the dense one beside it) and, in f32, the library
-    calls (``crop_library_calls``). Their device times come last
-    (``crop_device_times``)."""
+    the forward, the main path's backward (d_img only), the box gradients
+    alone and the backward of all three gradients, each backward twice,
+    bitwise equal, and each gradient bitwise the same in every set that
+    holds it. Times by CUDA events against the plain versions, the bound
+    (operations counted from the hats' nonzeros; the dense one beside it)
+    and, in f32, the library calls (``crop_library_calls``). Their device
+    times come last (``crop_device_times``)."""
     rows = {}
-    d_img_only, every = D_IMG_ONLY, EVERY_GRAD
+    names = ("d_img", "d_ry", "d_rx")
     for hh in (64, 32):
         for dtype in (torch.float32, torch.bfloat16):
             imgs, ry, rx, u, boxes = crop_case(cfg, hh, dtype)
             got = crop_fwd(imgs, ry, rx)
             grads = {nd: crop_bwd(imgs, ry, rx, u, nd)
-                     for nd in (d_img_only, every)}
+                     for _, nd, _ in CROP_BWD_ROWS}
             again = {nd: crop_bwd(imgs, ry, rx, u, nd) for nd in grads}
             torch.cuda.synchronize()
             want = crop_fwd_plain(imgs, ry, rx)
@@ -422,10 +451,10 @@ def check_crop(cfg: Config) -> dict:
             # largest value); bf16: both round one f32 sum to bf16.
             rel = 1e-5 if dtype == torch.float32 else 2 ** -7
             pairs = [("out", got, want)] + [
-                (f"{name}{'' if nd == every else '_alone'}", a, b)
-                for nd, gs in grads.items()
-                for name, a, b in zip(("d_img", "d_ry", "d_rx"), gs,
-                                      want_grads) if a is not None]
+                (f"{name}{suffix}", a, b)
+                for _, nd, suffix in CROP_BWD_ROWS
+                for name, a, b in zip(names, grads[nd], want_grads)
+                if a is not None]
             for name, a, b in pairs:
                 a, b = a.float(), b.float()
                 check(bool(torch.isfinite(a).all()), f"crop {name} not finite")
@@ -439,9 +468,10 @@ def check_crop(cfg: Config) -> dict:
                           for a, b in zip(grads[nd], again[nd])),
                       f"crop backward {nd} {dtype} HH={hh} is not bitwise "
                       "repeatable")
-            check(torch.equal(grads[d_img_only][0], grads[every][0]),
-                  f"crop d_img alone {dtype} HH={hh} differs from the d_img "
-                  "of the full backward")
+                check(all(a is None or torch.equal(a, b) for a, b in zip(
+                    grads[nd], grads[EVERY_GRAD])),
+                      f"crop backward {nd} {dtype} HH={hh} differs from the "
+                      "full backward")
             fwd_bound = bound(*crop_work(imgs, ry, rx, u, (got,)), dtype)
             bwd_bounds = {nd: bound(*crop_work(
                 imgs, ry, rx, u, [g for g in grads[nd] if g is not None], nd),
@@ -466,7 +496,8 @@ def check_crop(cfg: Config) -> dict:
                 lib_err = (float((lf - want).abs().max()),
                            float((lb - want_grads[0]).abs().max()))
                 # Sample coordinates are rounded differently (grid_sample
-                # unnormalizes [-1, 1]): ~1e-5 pixel.
+                # unnormalizes [-1, 1]): ~1e-5 pixel. The grid's gradient
+                # is the boxes' in another parametrization: timed only.
                 agree = (lib_err[0] <= 1e-4 * float(want.abs().max()) and
                          lib_err[1] <= 1e-4 * float(
                              want_grads[0].abs().max()))
@@ -483,10 +514,9 @@ def check_crop(cfg: Config) -> dict:
                 library_ms=lib.get("crop_fwd"), bound_ms=fwd_bound[0],
                 bound_by=fwd_bound[1], dense_bound_ms=dense["fwd"][0],
                 dense_bound_by=dense["fwd"][1])
-            for name, nd in (("crop_bwd", d_img_only),
-                             ("crop_bwd_all", every)):
-                mine = {k: v for k, v in errs.items() if k.startswith("d_")
-                        and k.endswith("_alone") == (nd == d_img_only)}
+            for name, nd, suffix in CROP_BWD_ROWS:
+                mine = {f"{g}{suffix}": errs[f"{g}{suffix}"]
+                        for g, on in zip(names, nd) if on}
                 rows[(name,) + key] = dict(
                     needs=nd, max_abs_err=max(mine.values()), errs=mine,
                     tols={k: tols[k] for k in mine},
@@ -496,7 +526,7 @@ def check_crop(cfg: Config) -> dict:
                     library_ms=lib.get(name), bound_ms=bwd_bounds[nd][0],
                     bound_by=bwd_bounds[nd][1], dense_bound_ms=dense[nd][0],
                     dense_bound_by=dense[nd][1])
-            for name in ("crop_fwd", "crop_bwd", "crop_bwd_all"):
+            for name in ("crop_fwd",) + tuple(r[0] for r in CROP_BWD_ROWS):
                 say(f"kernel {name}", hh=hh, dtype=str(dtype),
                     library=lib_note, **rows[(name,) + key])
     return rows
@@ -516,7 +546,8 @@ def stem_device_times(cfg: Config, rows: dict) -> None:
                    library_device_kernels=lib)
         say("kernel stem device", dtype=str(dtype), device_ms=row["device_ms"],
             device_kernels=dev, library_device_ms=row["library_device_ms"],
-            library_device_kernels=lib, bound_ms=row["bound_ms"])
+            library_device_kernels=lib, bound_ms=row["bound_ms"],
+            clocks_sm=sm_clock())
 
 
 def crop_device_times(cfg: Config, rows: dict) -> None:
@@ -529,10 +560,9 @@ def crop_device_times(cfg: Config, rows: dict) -> None:
     for hh in (64, 32):
         for dtype in (torch.float32, torch.bfloat16):
             imgs, ry, rx, u, boxes = crop_case(cfg, hh, dtype)
-            calls = {"crop_fwd": lambda: crop_fwd(imgs, ry, rx),
-                     "crop_bwd": lambda: crop_bwd(imgs, ry, rx, u,
-                                                  D_IMG_ONLY),
-                     "crop_bwd_all": lambda: crop_bwd(imgs, ry, rx, u)}
+            calls = {"crop_fwd": lambda: crop_fwd(imgs, ry, rx)}
+            for name, nd, _ in CROP_BWD_ROWS:
+                calls[name] = lambda nd=nd: crop_bwd(imgs, ry, rx, u, nd)
             timed_lib = rows[("crop_fwd", hh, dtype)]["library_ms"] is not None
             libs = crop_library_calls(imgs, boxes, u) if timed_lib else {}
             for name, fn in calls.items():
@@ -544,7 +574,23 @@ def crop_device_times(cfg: Config, rows: dict) -> None:
                            if name in libs else None)
                 say(f"kernel {name} device", hh=hh, dtype=str(dtype),
                     device_ms=row["device_ms"], device_kernels=dev,
-                    library_device_ms=row["library_device_ms"])
+                    library_device_ms=row["library_device_ms"],
+                    bound_ms=row["bound_ms"], clocks_sm=sm_clock())
+
+
+def compositor_device_times(cfg: Config, rows: dict) -> None:
+    """The compositor's device time per call at the serving shape (the
+    profiler's own kernel times), added to ``rows``; run after every
+    end-to-end phase, as ``crop_device_times`` is."""
+    case = compositor_case(cfg)
+    for dtype in (torch.float32, torch.bfloat16):
+        inputs = to_compositor(cfg, case, dtype)
+        dev = device_kernels_ms(lambda: composite(*inputs))
+        row = rows[dtype]
+        row.update(device_ms=device_total_ms(dev), device_kernels=dev)
+        say("kernel compositor device", dtype=str(dtype),
+            device_ms=row["device_ms"], device_kernels=dev,
+            bound_ms=row["bound_ms"], clocks_sm=sm_clock())
 
 
 def check_forward_only_guards() -> None:
@@ -576,18 +622,24 @@ def with_model(cfg: Config, **kw) -> Config:
     return cfg.replace(model=dataclasses.replace(cfg.model, **kw))
 
 
-def model_inputs(cfg: Config, n: int, device, seed: int = 3):
+def model_inputs(cfg: Config, n: int, device, seed: int = 3,
+                 gt_appearance: bool = False):
     """Batch tensors on ``device``; zero features with a zero mask, so every
-    object's appearance comes from repr_net (as bench.py serves)."""
+    object's appearance comes from repr_net (as bench.py serves), or with
+    ``gt_appearance`` the batch's images and no features, so every object's
+    appearance encodes its crop of them."""
     mc = cfg.model
     b = synthetic_batch(cfg, seed=seed, batch_size=n)
     t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     o = b.objs.shape[1]
-    return dict(objs=t(b.objs), triples=t(b.triples),
-                attributes=t(b.attributes), obj_mask=t(b.obj_mask),
-                triple_mask=t(b.triple_mask),
-                mask_noise=torch.zeros(mc.mask_noise_dim, device=device),
-                boxes_gt=t(b.boxes),
+    inputs = dict(objs=t(b.objs), triples=t(b.triples),
+                  attributes=t(b.attributes), obj_mask=t(b.obj_mask),
+                  triple_mask=t(b.triple_mask),
+                  mask_noise=torch.zeros(mc.mask_noise_dim, device=device),
+                  boxes_gt=t(b.boxes))
+    if gt_appearance:
+        return dict(inputs, imgs=t(b.imgs))
+    return dict(inputs,
                 features=torch.zeros((n, o, mc.rep_size), device=device),
                 features_mask=torch.zeros((n, o), device=device))
 
@@ -743,9 +795,34 @@ def dense_forward(ckpt: str) -> dict:
     return launches
 
 
+def gt_appearance(ckpt: str) -> dict:
+    """Phase 5b: the GT-appearance forward (``forward_batch(features=
+    None)``, as ``sample_images --use_gt_textures`` serves it) of the
+    default Config() at b16 bf16: every object's appearance encoded from
+    its crop of the batch's images, through the crop forward kernel."""
+    server = Server(ckpt, device="cuda")
+    batch = synthetic_batch(server.model.cfg, seed=4, batch_size=BATCH)
+    _cuda.LAUNCHES.clear()
+    out = server.model.forward_batch(batch)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    check(tuple(out.imgs_pred.shape) == (BATCH, 128, 128, 3),
+          f"GT appearance imgs_pred {tuple(out.imgs_pred.shape)}")
+    check_images(out.imgs_pred, "GT appearance b16")
+    check(launches.get("crop_fwd", 0) > 0,
+          f"GT appearance did not run the crop forward kernel: {launches}")
+    check(launches.get("stem_tc", 0) > 0,
+          f"GT appearance did not run the tensor-core stem: {launches}")
+    say("GT appearance", batch=BATCH, launches=launches,
+        img_std=float(out.imgs_pred.std()),
+        obj_repr_std=float(out.obj_repr.std()))
+    return launches
+
+
 def card_vs_cpu(model_cpu) -> None:
     """Phase 6: the same f32 weights on the card (kernels) and on the CPU
-    (plain versions), batch 2, TF32 off, both variants. GT boxes and masks
+    (plain versions), batch 2, TF32 off, both stem variants and the
+    GT-appearance forward (factored stem). GT boxes and masks
     of 0.1 / 0.9 keep the layout's claims away from the 0.5 step, so the
     images compare the arithmetic, not rounding at a threshold."""
     cfg = Config()
@@ -757,14 +834,18 @@ def card_vs_cpu(model_cpu) -> None:
     # imgs: a deep f32 generator (cuDNN vs oneDNN convs, instance norms)
     # amplifies last-bit differences; boxes / masks: a few f32 layers.
     tols = {"imgs_pred": 2e-3, "boxes_pred": 1e-4, "masks_pred": 1e-5}
-    for factored in (True, False):
+    # The GT-appearance variant encodes every object's crop of the batch's
+    # images (the crop forward kernel on the card, its plain version on the
+    # CPU), as forward_batch(features=None) serves it.
+    for factored, gt_appearance in ((True, False), (False, False),
+                                    (True, True)):
         errs = {}
         outs = []
         for model, dev in ((model_gpu, "cuda"), (model_cpu, "cpu")):
             # factored_stem picks a path and owns no parameter, so one set
             # of weights serves both variants.
             model.cfg = with_model(cfg, factored_stem=factored).model
-            inputs = model_inputs(cfg, 2, dev)
+            inputs = model_inputs(cfg, 2, dev, gt_appearance=gt_appearance)
             inputs["masks_gt"] = torch.as_tensor(masks, dtype=torch.float32,
                                                  device=dev)
             with torch.no_grad():
@@ -776,7 +857,8 @@ def card_vs_cpu(model_cpu) -> None:
             check(errs[key] <= tol,
                   f"card vs cpu {key} (factored={factored}): {errs[key]} > {tol}")
         check_images(outs[0].imgs_pred, "card f32")
-        say("card vs cpu", factored=factored, max_abs_diff=errs, tol=tols)
+        say("card vs cpu", factored=factored, gt_appearance=gt_appearance,
+            max_abs_diff=errs, tol=tols)
     del model_gpu
 
 
@@ -1050,8 +1132,9 @@ def generator_f64() -> None:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--stem", action="store_true",
-                        help="build and check the stem kernel alone")
+    parser.add_argument("--only", choices=("stem", "compositor", "crop"),
+                        help="build and check one kernel alone (its phase "
+                        "and its device times); no result line")
     args = parser.parse_args(argv)
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1061,24 +1144,26 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = smi("name,power.limit")
     say("device", name=name, count=torch.cuda.device_count(),
-        torch=torch.__version__, cuda=torch.version.cuda)
-    print(smi, flush=True)
+        torch=torch.__version__, cuda=torch.version.cuda,
+        clocks_sm=sm_clock())
+    print(card, flush=True)
 
     t = time.perf_counter()
-    built = _cuda.build(["stem"] if args.stem else _cuda.KERNELS)
+    built = _cuda.build([args.only] if args.only else _cuda.KERNELS)
     say("build", seconds=time.perf_counter() - t,
         per_kernel={k: v["seconds"] for k, v in built.items()})
 
     cfg = with_model(Config(), compute_dtype="bfloat16")
-    stem_rows = check_stem(cfg)
-    if args.stem:
-        stem_device_times(cfg, stem_rows)
+    if args.only:
+        check_phase, times, kcfg = {
+            "stem": (check_stem, stem_device_times, cfg),
+            "compositor": (check_compositor, compositor_device_times, cfg),
+            "crop": (check_crop, crop_device_times, Config())}[args.only]
+        times(kcfg, check_phase(kcfg))
         return 0
+    stem_rows = check_stem(cfg)
     comp_rows = check_compositor(cfg)
     crop_rows = check_crop(Config())
     check_forward_only_guards()
@@ -1103,6 +1188,7 @@ def main(argv=None) -> int:
         say("checkpoint", mask_logit_spread_before=spread)
         serve_launches = serve_and_forward(ckpts["factored"])
         dense_launches = dense_forward(ckpts["dense"])
+        gt_appearance(ckpts["factored"])
         card_vs_cpu(model_cpu)
         rates = serving_rate(ckpts)
     del model_cpu
@@ -1111,6 +1197,7 @@ def main(argv=None) -> int:
     train_card_vs_cpu()
     generator_f64()
     stem_device_times(cfg, stem_rows)
+    compositor_device_times(cfg, comp_rows)
     crop_device_times(Config(), crop_rows)
 
     def row(name, src, replaces, launches, r):
@@ -1141,6 +1228,12 @@ def main(argv=None) -> int:
             "scene_generation_tpu/ops/pallas/crop.py:126",
             train["launches"]["crop_bwd"],
             crop_rows[("crop_bwd", 32, torch.float32)]),
+        # The box gradients (d_ry, d_rx) alone: no path of the port asks
+        # for them (boxes are batch constants), so 0 launches.
+        row("crop_bwd_boxes", "scene_generation_tpu_torch/csrc/crop.cu",
+            "scene_generation_tpu/ops/pallas/crop.py:126",
+            train["launches"].get("crop_bwd_boxes", 0),
+            crop_rows[("crop_bwd_boxes", 32, torch.float32)]),
     ]
     say("done", seconds=time.perf_counter() - t0,
         img_per_s={k: v["img_per_s"] for k, v in rates.items()},

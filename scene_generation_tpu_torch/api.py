@@ -59,8 +59,9 @@ class InferenceModel:
         GT attributes). The mask noise comes from ``generator`` (the
         model's own seeded generator by default). ``features`` with an
         all-zero ``features_mask`` gives every object its repr_net
-        appearance; ``features=None`` (encode the GT crops) belongs to the
-        train slice and raises."""
+        appearance; ``features=None`` gives every object the appearance
+        encoded from its crop of ``batch.imgs`` at its GT box (the crop
+        kernel on the card)."""
         mc = self.cfg.model
         noise = torch.randn(mc.mask_noise_dim,
                             generator=generator or self.generator)
@@ -79,7 +80,7 @@ class InferenceModel:
             self._tensor(batch.objs), self._tensor(batch.triples), attributes,
             self._tensor(batch.obj_mask, torch.float32),
             self._tensor(batch.triple_mask, torch.float32),
-            noise.to(self.device),
+            noise.to(self.device), imgs=self._tensor(batch.imgs),
             boxes_gt=self._tensor(batch.boxes, torch.float32),
             masks_gt=(self._tensor(batch.masks, torch.float32)
                       if use_gt_masks else None),

@@ -50,11 +50,22 @@
 //             loading the spans of SPAN_BATCH objects at once: no float
 //             scratch, no atomics. A degenerate box (x1 == x0) gives image
 //             columns whose span is every q: right, not fast.
-//   d_ry, d_rx (launched only when asked): per (n, o, TP rows of p) the
-//             rows kernel forms t1 = ry img (kept in f32 scratch) and
-//             ub = u rx (in shared memory) and writes its rows of d_ry; per
-//             (n, o, TQ columns of q) the rx kernel sums u t1 into d_rx.
-//             Dense, on the CUDA cores.
+//   d_ry, d_rx (launched only when asked): one launch of two kinds of
+//             block, a block per (n, o) and 32 x 64 tile of d_ry (rows p,
+//             columns y) or of d_rx (rows q, columns x), 4 x 4 outputs a
+//             thread, each a product of two k-major tiles in shared memory
+//             with k = (s, c) in order, on the CUDA cores (f32 FMAs):
+//             d_rx[q][x] = sum_{p in pr, c} u[p][q][c] t1[p][x][c],
+//               t1[p][x][c] = sum_{y in rowspan(ry, p)} ry[p][y] img[y][x][c]
+//             d_ry[p][y] = sum_{q in qr, c} u[p][q][c] t2[y][q][c],
+//               t2[y][q][c] = sum_{x in rowspan(rx, q)} rx[q][x] img[y][x][c]
+//             (the plain version's association), pr and qr the ranges of
+//             rows of ry_o and rx_o that hold a nonzero. A block stages u,
+//             scans ry_o (rx_o) into shared memory for its spans, forms t1
+//             (t2) from two taps a value, then multiplies. Every staging
+//             loop issues its loads into registers before it stores any:
+//             stores to shared memory between the loads kept them one
+//             round trip each. No float scratch leaves the block.
 // Why two launches, not one: on the H100, a forward block that staged its
 // ry rows and all of rx_o in shared memory made each thread's staging loop
 // a chain of round trips, and a fused forward that found its rows' spans
@@ -63,9 +74,11 @@
 //
 // Summation order. Every product is a float32 FMA and every sum runs in
 // float32 in a fixed ascending order (y, then x; q, then p, then o), the
-// association of the dense kernels, so two runs give bitwise-equal results
-// and dropping the zero terms leaves every finite result equal to the dense
-// sum up to the sign of a zero. bf16 outputs are rounded once, on store.
+// association of the dense products (for d_ry the plain version's, u
+// against t2: forming u rx first, as an earlier kernel did, takes up to
+// four times the products), so two runs give bitwise-equal results and
+// dropping the zero terms leaves every finite result equal to the dense sum
+// up to the sign of a zero. bf16 outputs are rounded once, on store.
 //
 // Non-finite inputs. The dense products (the TPU kernel's, and the plain
 // versions') turn one NaN or Inf anywhere in an image into NaN in every
@@ -79,17 +92,17 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int TP = 16;          // crop rows (p) per block: backward d_ry rows
-constexpr int TQ = 16;          // crop columns (q) per block: backward d_rx
 constexpr int SPAN_ROWS = 8;    // rows (one a warp) per row-span block
 constexpr int SPAN_THREADS = 128;
 constexpr int SPAN_BATCH = 8;   // objects whose spans d_img loads at once
 constexpr int CG = 4;           // channels per thread: forward and d_img
+constexpr int BT = 128;         // threads a box-gradient block
+constexpr int TI = 32;          // its output rows: p of d_ry, q of d_rx
+constexpr int TJ = 64;          // its output columns: y of d_ry, x of d_rx
+constexpr int AS = TI + 4;      // row stride (floats) of the k-major A tiles
+constexpr int BATCH = 4;        // t1 sums a thread forms at once
+constexpr int SCAN_ROWS = 4;    // rows a warp scans at once
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 // Through the read-only (non-coherent) cache.
 __device__ __forceinline__ float load_ro(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_ro(const __nv_bfloat16* p) {
@@ -98,43 +111,6 @@ __device__ __forceinline__ float load_ro(const __nv_bfloat16* p) {
 __device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
-}
-
-// dst[r * cols + j] = src[r * cols + j] for r < avail, zero for avail <= r <
-// rows.
-template <typename T>
-__device__ void stage_rows(float* dst, const T* src, int avail, int rows,
-                           int cols) {
-  const int total = rows * cols, have = avail * cols;
-  for (int i = threadIdx.x; i < total; i += blockDim.x)
-    dst[i] = i < have ? load_f32(src + i) : 0.f;
-}
-
-// rx_o (WW, W) into shared memory with row stride W + 1.
-template <typename T>
-__device__ void stage_rx(float* rx_s, const T* rx, int WW, int W) {
-  for (int i = threadIdx.x; i < WW * W; i += blockDim.x) {
-    const int q = i / W, x = i - q * W;
-    rx_s[q * (W + 1) + x] = load_f32(rx + i);
-  }
-}
-
-// t[i][k] = sum_y ry_s[i][y] * img[y][k] for i < TP and k < K, y in order.
-template <typename T>
-__device__ void rows_times_image(const float* ry_s, const T* img, float* t_s,
-                                 int H, int K) {
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    float acc[TP];
-#pragma unroll
-    for (int i = 0; i < TP; ++i) acc[i] = 0.f;
-    for (int y = 0; y < H; ++y) {
-      const float v = load_f32(img + (size_t)y * K + k);
-#pragma unroll
-      for (int i = 0; i < TP; ++i) acc[i] = fmaf(ry_s[i * H + y], v, acc[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < TP; ++i) t_s[i * K + k] = acc[i];
-  }
 }
 
 // grid (ceil(N * O * (HH + WW) / SPAN_ROWS)), one warp per row. Row spans:
@@ -301,82 +277,344 @@ crop_bwd_img_kernel(const T* __restrict__ ry, const T* __restrict__ rx,
     if (j < nc) store_from_f32(out + j, acc[j]);
 }
 
-// grid (ceil(HH / TP), O, N). Writes t1 (f32 scratch, (N,O,HH,K)) and the
-// d_ry rows.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-crop_bwd_rows_kernel(const T* __restrict__ img, const T* __restrict__ ry,
-                     const T* __restrict__ rx, const T* __restrict__ u,
-                     T* __restrict__ d_ry, float* __restrict__ t1g, int H,
-                     int W, int C, int O, int HH, int WW) {
-  extern __shared__ __align__(16) float smem[];
-  const int K = W * C, QC = WW * C;
-  float* ry_s = smem;                     // [TP][H]
-  float* t_s = ry_s + TP * H;             // [TP][K]
-  float* ub_s = t_s + TP * K;             // [TP][K]
-  float* u_s = ub_s + TP * K;             // [TP][QC]
-  float* rx_s = u_s + TP * QC;            // [WW][W + 1]
-  const int n = blockIdx.z, o = blockIdx.y, p0 = blockIdx.x * TP;
-  const size_t no = (size_t)n * O + o;
-  const int rows = min(TP, HH - p0);
-  const T* img_n = img + (size_t)n * H * K;
+__device__ __forceinline__ void lds(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
 
-  stage_rows(ry_s, ry + (no * HH + p0) * H, rows, TP, H);
-  stage_rows(u_s, u + (no * HH + p0) * QC, rows, TP, QC);
-  stage_rx(rx_s, rx + no * WW * W, WW, W);
-  __syncthreads();
-  rows_times_image(ry_s, img_n, t_s, H, K);
+// A block's output tile: TI rows by TJc columns, an RI x RJ piece a thread.
+// A warp takes 4 groups of rows by 8 of columns, so a k step reads RI * 16
+// bytes of A and RJ * 32 of B, one wavefront each, without conflicts.
+template <int TJc, int RI, int RJ>
+struct Tile {
+  static constexpr int ROWS = RI, COLS = RJ;
+  static constexpr int BS = TJc + 4;      // row stride of B (floats)
+  static constexpr int GI = TI / RI;      // groups of rows
+  static_assert(GI * (TJc / RJ) == BT, "one piece a thread");
+  static_assert(GI % 4 == 0, "4 groups of rows a warp");
+  int i0, j0;
 
-  // ub[i][x*C + c] = sum_q u[i][q*C + c] * rx[q][x]
-  for (int idx = threadIdx.x; idx < TP * K; idx += blockDim.x) {
-    const int i = idx / K, k = idx - i * K, x = k / C, c = k - x * C;
-    const float* ur = u_s + i * QC + c;
-    float s = 0.f;
-    for (int q = 0; q < WW; ++q) s = fmaf(ur[q * C], rx_s[q * (W + 1) + x], s);
-    ub_s[idx] = s;
+  __device__ __forceinline__ Tile() {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    i0 = (warp % (GI / 4) * 4 + lane / 8) * RI;
+    j0 = (warp / (GI / 4) * 8 + lane % 8) * RJ;
   }
-  __syncthreads();
 
-  float* t1_rows = t1g + (no * HH + p0) * K;
-  for (int idx = threadIdx.x; idx < rows * K; idx += blockDim.x)
-    t1_rows[idx] = t_s[idx];
+  __device__ __forceinline__ void step(const float* A, const float* B, int k,
+                                       float (&acc)[RI][RJ]) const {
+    float a[RI], b[RJ];
+    lds(A + k * AS + i0, a);
+    lds(B + k * BS + j0, b);
+#pragma unroll
+    for (int r = 0; r < RI; ++r)
+#pragma unroll
+      for (int c = 0; c < RJ; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+  }
 
-  // d_ry[i][y] = sum_k ub[i][k] * img[y][k]
-  T* d_ry_rows = d_ry + (no * HH + p0) * H;
-  for (int y = threadIdx.x; y < H; y += blockDim.x) {
-    float acc[TP];
+  // acc[r][c] = fmaf(A[k][i0 + r], B[k][j0 + c], acc[r][c]) for k = 0..kn-1
+  // in order; A and B are k-major, row strides AS and BS.
+  __device__ __forceinline__ void fma(const float* A, const float* B, int kn,
+                                      float (&acc)[RI][RJ]) const {
+    int k = 0;
+    for (; k + 8 <= kn; k += 8) {
 #pragma unroll
-    for (int i = 0; i < TP; ++i) acc[i] = 0.f;
-    const T* img_row = img_n + (size_t)y * K;
-    for (int k = 0; k < K; ++k) {
-      const float v = load_f32(img_row + k);
-#pragma unroll
-      for (int i = 0; i < TP; ++i) acc[i] = fmaf(ub_s[i * K + k], v, acc[i]);
+      for (int kk = 0; kk < 8; ++kk) step(A, B, k + kk, acc);
     }
-    for (int i = 0; i < rows; ++i) store_from_f32(d_ry_rows + i * H + y, acc[i]);
+    for (; k < kn; ++k) step(A, B, k, acc);
+  }
+
+  // out[r0 + i][c0 + j] (a rows x cols matrix) from the thread's piece.
+  template <typename T>
+  __device__ __forceinline__ void store(T* out, int rows, int cols, int r0,
+                                        int c0,
+                                        const float (&acc)[RI][RJ]) const {
+#pragma unroll
+    for (int r = 0; r < RI; ++r)
+#pragma unroll
+      for (int c = 0; c < RJ; ++c) {
+        const int i = r0 + i0 + r, j = c0 + j0 + c;
+        if (i < rows && j < cols)
+          store_from_f32(out + (size_t)i * cols + j, acc[r][c]);
+      }
+  }
+};
+
+using BoxTile = Tile<TJ, 4, 4>;
+
+__host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
+
+// Shared memory (floats) of a box-gradient block: the scanned matrix (S
+// rows of L) and its row spans, then A and B, k-major, S*C rows each.
+__host__ __device__ inline size_t box_smem(int S, int L, int C) {
+  return round4(2 * S) + round4(S * L) +
+         (size_t)S * C * (AS + BoxTile::BS);
+}
+
+// What a kind of block reads and writes. d_ry: s = q (the scanned matrix
+// is rx_o, its taps t are image columns x), output rows p, columns y. d_rx:
+// s = p (ry_o, taps y), output rows q, columns x.
+struct BoxPlan {
+  int S, L;           // the scanned matrix: rows (s), row length (t)
+  int rows, cols;     // the output matrix
+  int u_s, u_i;       // offsets in u_o of s and of an output row
+  int im_t, im_j;     // offsets in the image of a tap and of an output column
+};
+
+// R (S rows of L) into R_s, and each row's span over t: a warp per row,
+// SCAN_ROWS rows a warp at once, every load issued before any store;
+// range: the first and last row with one. NaN counts as a nonzero.
+template <typename T>
+__device__ __forceinline__ void scan_rows(const T* __restrict__ R, int S,
+                                          int L, float* R_s, int2* spans,
+                                          int* range) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int lo_s = S, hi_s = -1;
+  for (int sb = warp * SCAN_ROWS; sb < S; sb += BT / 32 * SCAN_ROWS) {
+    int lo[SCAN_ROWS], hi[SCAN_ROWS];
+#pragma unroll
+    for (int r = 0; r < SCAN_ROWS; ++r) {
+      lo[r] = L;
+      hi[r] = -1;
+    }
+    for (int tb = 0; tb < L; tb += 128) {
+      float v[SCAN_ROWS][4];
+#pragma unroll
+      for (int r = 0; r < SCAN_ROWS; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int t = tb + q * 32 + lane;
+          v[r][q] = sb + r < S && t < L
+                        ? load_ro(R + (size_t)(sb + r) * L + t)
+                        : 0.f;
+        }
+#pragma unroll
+      for (int r = 0; r < SCAN_ROWS; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int t = tb + q * 32 + lane;
+          if (sb + r < S && t < L) {
+            R_s[(sb + r) * L + t] = v[r][q];
+            if (v[r][q] != 0.f) {
+              lo[r] = min(lo[r], t);
+              hi[r] = max(hi[r], t);
+            }
+          }
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < SCAN_ROWS; ++r) {
+      const int l = __reduce_min_sync(0xffffffffu, lo[r]);
+      const int h = __reduce_max_sync(0xffffffffu, hi[r]);
+      if (lane == 0 && sb + r < S) {
+        spans[sb + r] = make_int2(l, h);
+        if (l <= h) {
+          lo_s = min(lo_s, sb + r);
+          hi_s = sb + r;
+        }
+      }
+    }
+  }
+  if (hi_s >= 0) {
+    atomicMin(&range[0], lo_s);
+    atomicMax(&range[1], hi_s);
   }
 }
 
-// grid (ceil(WW / TQ), O, N). d_rx[q][x] = sum_p sum_c u[p][q][c] t1[p][x][c]
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-crop_bwd_rx_kernel(const T* __restrict__ u, const float* __restrict__ t1g,
-                   T* __restrict__ d_rx, int W, int C, int O, int HH, int WW) {
-  const int K = W * C, QC = WW * C;
-  const int n = blockIdx.z, o = blockIdx.y, q0 = blockIdx.x * TQ;
-  const size_t no = (size_t)n * O + o;
-  const int cols = min(TQ, WW - q0);
-  const T* u_no = u + no * HH * QC;
-  const float* t1_no = t1g + no * HH * K;
-  for (int idx = threadIdx.x; idx < cols * W; idx += blockDim.x) {
-    const int j = idx / W, x = idx - j * W, q = q0 + j;
-    float s = 0.f;
-    for (int p = 0; p < HH; ++p) {
-      const T* ur = u_no + (size_t)p * QC + q * C;
-      const float* tr = t1_no + (size_t)p * K + x * C;
-      for (int c = 0; c < C; ++c) s = fmaf(load_f32(ur + c), tr[c], s);
+// One tile (rows r0.., columns c0..) of d_ry (RX false) or d_rx (RX true)
+// of one crop:
+//   out[i][j] = sum_{k = (s, c), s in sr} A[k][i] B[k][j], k in order,
+//   A[s*C + c][i] = u (s, r0 + i, c),
+//   B[s*C + c][j] = sum_{t in span(R, s)} R[s][t] img(t, c0 + j, c), t in
+//   order,
+// sr the range of rows of R that hold a nonzero. Every staging loop issues
+// its loads into registers before it stores any, and steps its indices
+// instead of dividing.
+template <bool RX, typename T>
+__device__ __forceinline__ void box_tile(const T* __restrict__ img_n,
+                                         const T* __restrict__ R,
+                                         const T* __restrict__ u_o,
+                                         T* __restrict__ out, const BoxPlan P,
+                                         int C, int r0, int c0, float* smem,
+                                         int* range) {
+  int2* spans = reinterpret_cast<int2*>(smem);        // [S]
+  float* R_s = smem + round4(2 * P.S);                // [S][L]
+  float* A = R_s + round4(P.S * P.L);                 // [S*C][AS]
+  float* B = A + (size_t)P.S * C * AS;                // [S*C][BS]
+  const int tid = threadIdx.x, SC = P.S * C;
+
+  // A: a thread keeps k % 8 and takes rows i, i + BT / 8, ... of every
+  // eighth k (a warp: 8 consecutive k of 4 rows, conflict-free stores), 4 k
+  // at once.
+  {
+    constexpr int IH = TI * 8 / BT;
+    const int rows = min(TI, P.rows - r0);
+    const int kl = tid % 8, il = tid / 8;
+    for (int kb = kl; kb < SC; kb += 8 * 4) {
+      float v[4][IH];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const int k = kb + 8 * g, s = k / C;
+        const T* src = u_o + s * P.u_s + k - s * C;
+#pragma unroll
+        for (int h = 0; h < IH; ++h) {
+          const int i = il + BT / 8 * h;
+          v[g][h] = k < SC && i < rows ? load_ro(src + (r0 + i) * P.u_i)
+                                       : 0.f;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int h = 0; h < IH; ++h)
+          if (kb + 8 * g < SC)
+            A[(kb + 8 * g) * AS + il + BT / 8 * h] = v[g][h];
     }
-    store_from_f32(d_rx + (no * WW + q) * W + x, s);
+  }
+  scan_rows(R, P.S, P.L, R_s, spans, range);
+  __syncthreads();
+  const int sa = range[0];
+  const int ka = sa * C, K = range[1] >= sa ? (range[1] - sa + 1) * C : 0;
+  const int cols = min(TJ, P.cols - c0);
+
+  if (RX) {
+    // B of d_rx: a thread keeps its column j (the lanes of a warp on
+    // consecutive image pixels) and steps k by BT / TJ, BATCH at once.
+    constexpr int KS = BT / TJ;
+    const int j = tid % TJ;
+    const int im_j = (c0 + min(j, cols - 1)) * P.im_j;
+    int s = sa + tid / TJ / C, c = tid / TJ % C;
+    for (int kr0 = tid / TJ; kr0 < K; kr0 += KS * BATCH) {
+      int2 sp[BATCH];
+      int ro[BATCH], io[BATCH];
+      float w0[BATCH], w1[BATCH], v0[BATCH], v1[BATCH];
+#pragma unroll
+      for (int b = 0; b < BATCH; ++b) {
+        const bool live = kr0 + KS * b < K;
+        sp[b] = live && j < cols ? spans[s] : make_int2(1, 0);
+        ro[b] = min(s, P.S - 1) * P.L;
+        io[b] = im_j + c;
+        c += KS;
+        while (c >= C) {
+          c -= C;
+          ++s;
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < BATCH; ++b) {
+        const int t = sp[b].x;
+        const bool one = t <= sp[b].y, two = t + 1 <= sp[b].y;
+        w0[b] = one ? R_s[ro[b] + t] : 0.f;
+        w1[b] = two ? R_s[ro[b] + t + 1] : 0.f;
+        v0[b] = one ? load_ro(img_n + io[b] + t * P.im_t) : 0.f;
+        v1[b] = two ? load_ro(img_n + io[b] + (t + 1) * P.im_t) : 0.f;
+      }
+#pragma unroll
+      for (int b = 0; b < BATCH; ++b) {
+        float acc = 0.f;
+        if (sp[b].x <= sp[b].y) acc = fmaf(w0[b], v0[b], acc);
+        if (sp[b].x + 1 <= sp[b].y) acc = fmaf(w1[b], v1[b], acc);
+        for (int t = sp[b].x + 2; t <= sp[b].y; ++t)
+          acc = fmaf(R_s[ro[b] + t], load_ro(img_n + io[b] + t * P.im_t),
+                     acc);
+        if (kr0 + KS * b < K) B[(ka + kr0 + KS * b) * BoxTile::BS + j] = acc;
+      }
+    }
+  } else {
+    // B of d_ry: a thread keeps k % 8 and takes rows j, j + BT / 8, ... of
+    // every eighth k (a warp: 8 consecutive k of 4 rows, conflict-free
+    // stores), whose span and tap weights serve them all; KG k at once.
+    constexpr int KG = 2, JS = BT / 8, JR = TJ / JS;
+    const int kl = tid % 8, jl = tid / 8;
+    for (int kr0 = kl; kr0 < K; kr0 += 8 * KG) {
+      int2 sp[KG];
+      int io[KG];
+      float w0[KG], w1[KG], v0[KG][JR], v1[KG][JR];
+#pragma unroll
+      for (int g = 0; g < KG; ++g) {
+        const int k = ka + kr0 + 8 * g, s = k / C;
+        sp[g] = kr0 + 8 * g < K ? spans[s] : make_int2(1, 0);
+        const float* rr = R_s + min(s, P.S - 1) * P.L;
+        w0[g] = sp[g].x <= sp[g].y ? rr[sp[g].x] : 0.f;
+        w1[g] = sp[g].x + 1 <= sp[g].y ? rr[sp[g].x + 1] : 0.f;
+        io[g] = k - s * C;
+#pragma unroll
+        for (int r = 0; r < JR; ++r) {
+          const int j = jl + JS * r, t = sp[g].x;
+          const T* px = img_n + (c0 + min(j, cols - 1)) * P.im_j + io[g];
+          v0[g][r] = t <= sp[g].y && j < cols ? load_ro(px + t * P.im_t)
+                                              : 0.f;
+          v1[g][r] = t + 1 <= sp[g].y && j < cols
+                         ? load_ro(px + (t + 1) * P.im_t)
+                         : 0.f;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < KG; ++g) {
+        const int kr = kr0 + 8 * g;
+        if (kr >= K) continue;
+        const float* rr = R_s + (ka + kr) / C * P.L;
+#pragma unroll
+        for (int r = 0; r < JR; ++r) {
+          const int j = jl + JS * r;
+          float acc = 0.f;
+          if (sp[g].x <= sp[g].y) acc = fmaf(w0[g], v0[g][r], acc);
+          if (sp[g].x + 1 <= sp[g].y) acc = fmaf(w1[g], v1[g][r], acc);
+          if (sp[g].y >= sp[g].x + 2 && j < cols) {
+            const T* px = img_n + (c0 + j) * P.im_j + io[g];
+            for (int t = sp[g].x + 2; t <= sp[g].y; ++t)
+              acc = fmaf(rr[t], load_ro(px + t * P.im_t), acc);
+          }
+          B[(ka + kr) * BoxTile::BS + j] = acc;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  const BoxTile tile;
+  float acc[BoxTile::ROWS][BoxTile::COLS] = {};
+  if (K > 0)
+    tile.fma(A + (size_t)ka * AS, B + (size_t)ka * BoxTile::BS, K, acc);
+  tile.store(out, P.rows, P.cols, r0, c0, acc);
+}
+
+// grid (d_ry tiles + d_rx tiles, N * O). Blocks below the d_ry count take a
+// tile of d_ry, the others one of d_rx.
+template <typename T>
+__global__ void __launch_bounds__(BT)
+crop_bwd_boxes_kernel(const T* __restrict__ img, const T* __restrict__ ry,
+                      const T* __restrict__ rx, const T* __restrict__ u,
+                      T* __restrict__ d_ry, T* __restrict__ d_rx, int H,
+                      int W, int C, int O, int HH, int WW) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int range[2];
+  if (threadIdx.x == 0) {
+    range[0] = 1 << 30;
+    range[1] = -1;
+  }
+  __syncthreads();
+  const size_t no = blockIdx.y;
+  const T* img_n = img + (size_t)(blockIdx.y / O) * H * W * C;
+  const T* u_o = u + no * HH * WW * C;
+  const int ry_cols = (H + TJ - 1) / TJ;
+  const int ry_tiles = (HH + TI - 1) / TI * ry_cols;
+  const int t = blockIdx.x;
+  if (t < ry_tiles) {
+    // d_ry[p][y] = sum_{q, c} u[p][q][c] t2[y][q][c], t2[y][q][c] =
+    // sum_{x in span(rx, q)} rx[q][x] img[y][x][c].
+    const BoxPlan P{WW, W, HH, H, C, WW * C, C, W * C};
+    box_tile<false>(img_n, rx + no * WW * W, u_o, d_ry + no * HH * H, P, C,
+             t / ry_cols * TI, t % ry_cols * TJ, smem, range);
+  } else {
+    // d_rx[q][x] = sum_{p, c} u[p][q][c] t1[p][x][c], t1[p][x][c] =
+    // sum_{y in span(ry, p)} ry[p][y] img[y][x][c].
+    const int rx_cols = (W + TJ - 1) / TJ, r = t - ry_tiles;
+    const BoxPlan P{HH, H, WW, W, WW * C, C, W * C, C};
+    box_tile<true>(img_n, ry + no * HH * H, u_o, d_rx + no * WW * W, P, C,
+             r / rx_cols * TI, r % rx_cols * TJ, smem, range);
   }
 }
 
@@ -431,26 +669,21 @@ cudaError_t crop_bwd_img(const void* ry, const void* rx, const void* u,
 
 template <typename T>
 cudaError_t crop_bwd_boxes(const void* img, const void* ry, const void* rx,
-                           const void* u, void* d_ry, void* d_rx, float* t1,
-                           int N, int H, int W, int C, int O, int HH, int WW,
+                           const void* u, void* d_ry, void* d_rx, int N,
+                           int H, int W, int C, int O, int HH, int WW,
                            cudaStream_t stream) {
-  const int K = W * C, QC = WW * C;
-  const size_t smem_rows =
-      sizeof(float) * ((size_t)TP * H + 2 * (size_t)TP * K +
-                       (size_t)TP * QC + (size_t)WW * (W + 1));
-  cudaError_t err = allow_smem(crop_bwd_rows_kernel<T>, smem_rows);
+  const size_t ry_floats = box_smem(WW, W, C);
+  const size_t rx_floats = box_smem(HH, H, C);
+  const size_t smem =
+      sizeof(float) * (ry_floats > rx_floats ? ry_floats : rx_floats);
+  cudaError_t err = allow_smem(crop_bwd_boxes_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  crop_bwd_rows_kernel<T><<<dim3((HH + TP - 1) / TP, O, N), THREADS,
-                            smem_rows, stream>>>(
+  const int tiles = (HH + TI - 1) / TI * ((H + TJ - 1) / TJ) +
+                    (WW + TI - 1) / TI * ((W + TJ - 1) / TJ);
+  crop_bwd_boxes_kernel<T><<<dim3(tiles, N * O), BT, smem, stream>>>(
       static_cast<const T*>(img), static_cast<const T*>(ry),
       static_cast<const T*>(rx), static_cast<const T*>(u),
-      static_cast<T*>(d_ry), t1, H, W, C, O, HH, WW);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  crop_bwd_rx_kernel<T><<<dim3((WW + TQ - 1) / TQ, O, N), THREADS, 0,
-                          stream>>>(static_cast<const T*>(u), t1,
-                                    static_cast<T*>(d_rx), W, C, O, HH, WW);
+      static_cast<T*>(d_ry), static_cast<T*>(d_rx), H, W, C, O, HH, WW);
   return cudaGetLastError();
 }
 
@@ -489,19 +722,17 @@ int sg_crop_bwd_img(const void* ry, const void* rx, const void* u,
   return cudaErrorInvalidValue;
 }
 
-// t1: float32 scratch of N*O*HH*W*C values.
 int sg_crop_bwd_boxes(const void* img, const void* ry, const void* rx,
-                      const void* u, void* d_ry, void* d_rx, void* t1, int N,
-                      int H, int W, int C, int O, int HH, int WW, int dtype,
+                      const void* u, void* d_ry, void* d_rx, int N, int H,
+                      int W, int C, int O, int HH, int WW, int dtype,
                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* t1f = static_cast<float*>(t1);
   if (dtype == 0)
-    return crop_bwd_boxes<float>(img, ry, rx, u, d_ry, d_rx, t1f, N, H, W, C,
-                                 O, HH, WW, s);
+    return crop_bwd_boxes<float>(img, ry, rx, u, d_ry, d_rx, N, H, W, C, O,
+                                 HH, WW, s);
   if (dtype == 1)
-    return crop_bwd_boxes<__nv_bfloat16>(img, ry, rx, u, d_ry, d_rx, t1f, N,
-                                         H, W, C, O, HH, WW, s);
+    return crop_bwd_boxes<__nv_bfloat16>(img, ry, rx, u, d_ry, d_rx, N, H, W,
+                                         C, O, HH, WW, s);
   return cudaErrorInvalidValue;
 }
 

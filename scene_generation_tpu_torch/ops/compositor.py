@@ -66,6 +66,8 @@ def _launch(vecs, ry, rx, masks) -> torch.Tensor:
             f"compositor shapes disagree: vecs {tuple(vecs.shape)}, ry "
             f"{tuple(ry.shape)}, rx {tuple(rx.shape)}, masks "
             f"{tuple(masks.shape)}")
+    if n * o * max(h, w) * m >= 2 ** 31 or n * h * w * d >= 2 ** 31:
+        raise ValueError("compositor kernel indexes with 32-bit ints")
     lib = _cuda.library("compositor")
     fn = lib.sg_compositor
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [

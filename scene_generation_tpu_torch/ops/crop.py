@@ -15,8 +15,8 @@ torch by ``crop_matrices``, so gradients reach the boxes through autograd.
 
 The backward computes only the gradients its inputs need: d_img by the
 banded gather kernel (counted in ``LAUNCHES["crop_bwd"]``), d_ry and d_rx,
-the box gradients, by a dense pair of kernels launched only when one of
-them is asked for (``LAUNCHES["crop_bwd_boxes"]``). The kernels touch only
+the box gradients, by one banded kernel launched only when one of them is
+asked for (``LAUNCHES["crop_bwd_boxes"]``). The kernels touch only
 the hats' nonzeros, so unlike the dense plain versions they do not spread
 a NaN or Inf of an image into crops that do not sample it.
 """
@@ -162,19 +162,16 @@ def _launch_bwd(imgs, ry, rx, u, needs: Needs) -> Grads:
         _cuda.check(lib, rc, f"crop d_img kernels at W={w}, O={o}")
         _cuda.LAUNCHES["crop_bwd"] += 1
     if needs[1] or needs[2]:
-        lib, fn = _entry("sg_crop_bwd_boxes", 7)
+        lib, fn = _entry("sg_crop_bwd_boxes", 6)
         d_ry = torch.empty_like(ry)
         d_rx = torch.empty_like(rx)
-        # f32 scratch: ry_o @ img for every (n, o) row, (N, O, HH, W*C)
-        t1 = torch.empty((n, o, hh, w * c), dtype=torch.float32,
-                         device=imgs.device)
         rc = fn(imgs.data_ptr(), ry.data_ptr(), rx.data_ptr(), u.data_ptr(),
-                d_ry.data_ptr(), d_rx.data_ptr(), t1.data_ptr(), n, h, w, c,
-                o, hh, ww, dtype, stream)
+                d_ry.data_ptr(), d_rx.data_ptr(), n, h, w, c, o, hh, ww,
+                dtype, stream)
         _cuda.check(lib, rc, f"crop d_ry/d_rx kernels at W={w}, C={c}, "
                     f"HH={hh}, WW={ww}")
         _cuda.LAUNCHES["crop_bwd_boxes"] += 1
-        # One pair of launches computes both; only what was asked goes back.
+        # One launch computes both; only what was asked goes back.
         d_ry = d_ry if needs[1] else None
         d_rx = d_rx if needs[2] else None
     return d_img, d_ry, d_rx

@@ -102,3 +102,56 @@ def test_cpu_wrapper_runs_the_plain_version_without_a_launch():
     before = _cuda.LAUNCHES["compositor"]
     assert torch.equal(composite(*inputs), composite_plain(*inputs))
     assert _cuda.LAUNCHES["compositor"] == before
+
+
+def _overlap_case(seed, n=3, o=6, d=5, m=8, h=24, w=20):
+    """Boxes that overlap (all around the frame's middle, some wider than
+    it), masks of 0.5 exactly, 0.1, 0.9 and random values, one padded
+    slot per image."""
+    rng = np.random.RandomState(seed)
+    vecs = rng.randn(n, o, d).astype(np.float32)
+    c = rng.uniform(0.35, 0.65, (n, o, 2))
+    half = rng.uniform(0.1, 0.7, (n, o, 2))
+    boxes = np.concatenate([c - half, c + half], -1).astype(np.float32)
+    masks = rng.choice(np.float32([0.1, 0.5, 0.9]), (n, o, m, m))
+    masks[:, ::2] = rng.rand(n, (o + 1) // 2, m, m)
+    obj_mask = np.ones((n, o), np.float32)
+    obj_mask[:, -1] = 0
+    return [torch.from_numpy(a) for a in (vecs, boxes, masks, obj_mask)] + [
+        h, w]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_test_mode_claims_are_exclusive(seed):
+    """The invariant the compositor kernel rests on: each pixel is claimed
+    by at most one object, so the layout at a pixel is one product,
+    ``w_p * vecs[k_p]``. Held on the test-mode weights (both
+    ``occlusion_impl``s) and, bitwise, on ``composite_plain``."""
+    from scene_generation_tpu_torch.ops.layout import masks_to_layout_weights
+    vecs, boxes, masks, obj_mask, h, w = _overlap_case(seed)
+    for impl in ("matrix", "sort"):
+        lw = masks_to_layout_weights(vecs, boxes, masks, obj_mask, h, w,
+                                     test_mode=True, occlusion_impl=impl)
+        assert int((lw != 0).sum(1).max()) <= 1, impl
+        assert int((lw != 0).sum()) > 0, impl
+
+    v, ry, rx, m = compositor_inputs(vecs, boxes, masks, obj_mask, h, w)
+    # The first object, in composite order, whose resampled mask is above
+    # 0.5 claims the pixel, with that value as its weight; the resample is
+    # the plain version's own products.
+    s = torch.stack([ry[:, k] @ m[:, k] @ rx[:, k].transpose(1, 2)
+                     for k in range(v.shape[1])], 1)            # (N,O,H,W)
+    above = s > 0.5
+    claimed = above.any(1)
+    k_p = above.int().argmax(1)                                  # (N,H,W)
+    w_p = torch.where(claimed, s.gather(1, k_p[:, None])[:, 0], 0.0)
+    rows = torch.arange(v.shape[0])[:, None, None]
+    want = w_p[..., None] * v[rows, k_p]
+    got = composite_plain(v, ry, rx, m)
+    # The case holds what it means to: unclaimed pixels, resampled values
+    # of exactly 0.5 (which claim nothing), pixels that several objects
+    # are above 0.5 at.
+    assert bool(claimed.any()) and not bool(claimed.all())
+    assert bool((s == 0.5).any())
+    assert int(above.sum(1).max()) > 1
+    assert torch.equal(got, want)

@@ -155,23 +155,71 @@ def _compositor_case(device, dtype, n, o, d, m, h, w):
         torch.from_numpy(obj_mask).to(device), h, w)
 
 
+# The serving shape; then D = 7 and W = 150 (one element a thread); D = 13
+# and H = 36, not a multiple of the 8-row tile; the 16-byte write path with
+# H = 100; M = 48, more mask columns than a warp's lanes (f32 D = 6: the
+# 16-byte path with half-chunks of 2 channels).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,o,d,m,h,w", [(4, 9, 204, 32, 128, 128),
-                                         (3, 4, 7, 8, 36, 150)])
+                                         (3, 4, 7, 8, 36, 150),
+                                         (2, 9, 13, 32, 36, 128),
+                                         (2, 5, 204, 32, 100, 64),
+                                         (2, 3, 6, 48, 40, 40)])
 def test_compositor_kernel_matches_plain(device, dtype, n, o, d, m, h, w):
     inputs = _compositor_case(device, dtype, n, o, d, m, h, w)
     before = _cuda.LAUNCHES["compositor"]
     got = composite(*inputs).float()
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["compositor"] == before + 1
+    _assert_compositor_matches_plain(inputs, got)
+
+
+def _assert_compositor_matches_plain(inputs, got):
     want = composite_plain(*inputs).float()
+    assert got.shape == want.shape
     assert torch.isfinite(got).all()
     diff = (got - want).abs().amax(-1)
     # A claim flips only where a resampled value lies within rounding of
     # 0.5 (the sums run in another order); such a pixel differs by a whole
     # vector. Every other pixel differs by rounding of the output dtype.
-    tol = 1e-4 if dtype == torch.float32 else 2 ** -8 * 2
+    tol = 1e-4 if inputs[0].dtype == torch.float32 else 2 ** -8 * 2
     assert int((diff > tol).sum()) <= 8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["dense", "holes"])
+def test_compositor_kernel_matches_plain_on_dense_matrices(device, dtype,
+                                                           kind):
+    """ry and rx that are not hats: every row dense ('dense'), or with
+    zeros inside rows' spans, rows of zeros and one object's matrices all
+    zero ('holes'). The spans are then whole rows, or ragged ones."""
+    rng = np.random.RandomState(7)
+    n, o, d, m, h, w = 2, 5, 204, 32, 40, 64
+    # Rows that sum to about 1 (2 with holes, half of them zeroed), so the
+    # resampled masks spread around 0.5 and about half the pixels claim.
+    top = 2.0 / m if kind == "dense" else 4.0 / m
+    ry = rng.uniform(0, top, (n, o, h, m)).astype(np.float32)
+    rx = rng.uniform(0, top, (n, o, w, m)).astype(np.float32)
+    if kind == "holes":
+        for a in (ry, rx):
+            a[rng.rand(*a.shape) < 0.5] = 0.0
+            a[:, :, 3] = 0.0
+            a[0, 2] = 0.0
+    masks = rng.rand(n, o, m, m).astype(np.float32)
+    vecs = rng.randn(n, o, d).astype(np.float32)
+    inputs = [torch.from_numpy(a).to(device, dtype)
+              for a in (vecs, ry, rx, masks)]
+    got = composite(*inputs).float()
+    torch.cuda.synchronize()
+    _assert_compositor_matches_plain(inputs, got)
+    assert float(got.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_compositor_kernel_is_bitwise_repeatable(device, dtype):
+    inputs = _compositor_case(device, dtype, 16, 9, 204, 32, 128, 128)
+    first = composite(*inputs)
+    assert torch.equal(first, composite(*inputs))
 
 
 def test_compositor_kernel_claims_half_threshold_in_f32(device):
@@ -345,6 +393,69 @@ def test_crop_d_img_alone_is_bitwise_the_full_backward(device, dtype):
     boxes_only = crop_bwd(imgs, ry, rx, u, needs=(False, True, False))
     assert boxes_only[0] is None and boxes_only[2] is None
     assert torch.equal(boxes_only[1], full[1])
+
+
+BOXES_ONLY = (False, True, True)
+
+
+def _box_gradient_cases(device, dtype):
+    """(name, (imgs, ry, rx, u)): hats at the train shapes, edge hats at
+    both crop sizes, dense matrices and matrices with holes."""
+    yield "hats", _crop_case(device, dtype, 12, 128, 128, 3, 9, 32, 32)
+    rng = np.random.RandomState(3)
+    boxes = torch.from_numpy(np.stack([_edge_boxes(9), _edge_boxes(9)[::-1]]))
+    imgs = torch.from_numpy(rng.uniform(-1, 1, (2, 128, 128, 3)).astype(
+        np.float32)).to(device, dtype)
+    for hh in (64, 32):
+        ry, rx = crop_matrices(boxes.to(device, dtype), hh, hh, 128, 128)
+        u = torch.from_numpy(rng.randn(2, 9, hh, hh, 3).astype(
+            np.float32)).to(device, dtype)
+        yield f"edge_hats_{hh}", (imgs, ry.contiguous(), rx.contiguous(), u)
+    for kind in ("dense", "holes"):
+        yield kind, _dense_case(device, dtype, kind)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_crop_box_gradients_alone_match_plain(device, dtype):
+    """The box gradients' kernel by itself (d_ry and d_rx, no d_img): one
+    launch a call, within the plain version's tolerance (f32 1e-5, bf16
+    2^-7 of the largest value), bitwise repeatable, and bitwise the d_ry and
+    d_rx of the full backward."""
+    for name, (imgs, ry, rx, u) in _box_gradient_cases(device, dtype):
+        before = _cuda.LAUNCHES["crop_bwd_boxes"]
+        got = crop_bwd(imgs, ry, rx, u, needs=BOXES_ONLY)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["crop_bwd_boxes"] == before + 1, name
+        assert got[0] is None, name
+        want = crop_bwd_plain(imgs, ry, rx, u, needs=BOXES_ONLY)
+        for a, b in zip(got[1:], want[1:]):
+            a, b = a.float(), b.float()
+            scale = float(b.abs().max())
+            tol = 1e-5 * max(scale, 1.0) if dtype == torch.float32 else \
+                2 ** -7 * scale
+            assert torch.isfinite(a).all(), name
+            assert float((a - b).abs().max()) <= tol, name
+        again = crop_bwd(imgs, ry, rx, u, needs=BOXES_ONLY)
+        full = crop_bwd(imgs, ry, rx, u)
+        assert _cuda.LAUNCHES["crop_bwd_boxes"] == before + 3, name
+        for i in (1, 2):
+            assert torch.equal(got[i], again[i]), name
+            assert torch.equal(got[i], full[i]), name
+
+
+def test_crop_box_gradients_of_boxes_outside_the_image_are_zero(device):
+    """Boxes wholly out of frame sample nothing: no column or row of the
+    hats holds a nonzero, and d_ry and d_rx are exact zeros."""
+    boxes = torch.tensor([[[1.2, 1.1, 1.7, 1.9], [-0.9, -0.8, -0.2, -0.1]]],
+                         device=device)
+    ry, rx = crop_matrices(boxes, 32, 32, 128, 128)
+    assert float(ry.abs().sum() + rx.abs().sum()) == 0.0
+    imgs = torch.rand(1, 128, 128, 3, device=device)
+    u = torch.randn(1, 2, 32, 32, 3, device=device)
+    _, d_ry, d_rx = crop_bwd(imgs, ry.contiguous(), rx.contiguous(), u,
+                             needs=BOXES_ONLY)
+    assert torch.equal(d_ry, torch.zeros_like(d_ry))
+    assert torch.equal(d_rx, torch.zeros_like(d_rx))
 
 
 def test_crop_box_gradient_matches_the_cpu(device):

@@ -200,3 +200,70 @@ def test_scene_graph_encoding_and_cluster_features_match_jax(ckpt_dir):
     for a, b in zip(feats, ref):
         assert np.array_equal(a, b)
     assert feats[1].sum() > 0
+
+
+# The tolerances of the test-mode forward's parity
+# (tests/test_torch_model.py): f32, 1e-5 on boxes, masks and appearance
+# vectors (a few layers of f32 products), 2e-4 on images (a deep generator
+# of convs and instance norms).
+GT_APPEARANCE_TOL = {"imgs_pred": 2e-4, "boxes_pred": 1e-5,
+                     "masks_pred": 1e-5, "obj_repr": 1e-5}
+
+
+@pytest.mark.parametrize("factored", [True, False],
+                         ids=["factored", "dense"])
+def test_forward_batch_gt_appearance_matches_jax(factored, monkeypatch):
+    """``forward_batch(features=None)``: every object's appearance encoded
+    from its crop of the batch's images (``sample_images.py
+    --use_gt_textures``), against the JAX package's InferenceModel with
+    the same weights, batch and mask noise, GT boxes and GT masks of
+    0.1 / 0.9 (away from the test-mode claim's 0.5 step)."""
+    import collections
+    import types
+    import jax
+    from scene_generation_tpu.api import InferenceModel as JaxInferenceModel
+    from scene_generation_tpu.models import SceneModel as JaxSceneModel
+    from scene_generation_tpu_torch.ops.layout import _sample_masks
+    from _torch_port import (away_from_half, jax_variables, port_config,
+                             port_model, with_model)
+
+    cfg = with_model(jax_small_config(), factored_stem=factored,
+                     test_compositor_backend="xla")
+    variables = jax_variables(cfg)
+    mc = cfg.model
+    batch = jax_synthetic_batch(cfg, seed=2, batch_size=2)
+    n, o = batch.objs.shape
+    batch = batch._replace(masks=away_from_half(
+        np.random.RandomState(3), (n, o, mc.mask_size, mc.mask_size)))
+    sampled = _sample_masks(torch.from_numpy(batch.boxes),
+                            torch.from_numpy(batch.masks), *mc.image_size)
+    valid = torch.from_numpy(batch.obj_mask).bool()
+    assert float((sampled[valid] - 0.5).abs().min()) > 1e-5
+
+    port = InferenceModel(port_config(cfg), {}, port_model(cfg, variables))
+    noise = torch.randn(mc.mask_noise_dim,
+                        generator=torch.Generator().manual_seed(5))
+    got = port.forward_batch(batch, use_gt_boxes=True, use_gt_masks=True,
+                             generator=torch.Generator().manual_seed(5))
+
+    ref = JaxInferenceModel.__new__(JaxInferenceModel)
+    ref.cfg, ref.vocab, ref._fwd_cache = cfg, {}, {}
+    ref.mods = types.SimpleNamespace(model=JaxSceneModel(mc))
+    # Only the generator's variables are read; a namedtuple is a pytree.
+    state = collections.namedtuple("State", "g_params g_stats")
+    ref.state = state(variables["params"], variables["batch_stats"])
+    # The same noise on both sides: the JAX draw returns the port's.
+    monkeypatch.setattr(jax.random, "normal",
+                        lambda key, shape: jax.numpy.asarray(noise.numpy()))
+    want = ref.forward_batch(batch, use_gt_boxes=True, use_gt_masks=True,
+                             rng=jax.random.PRNGKey(0))
+    for field, tol in GT_APPEARANCE_TOL.items():
+        a = getattr(got, field).numpy()
+        b = np.asarray(getattr(want, field))
+        assert a.shape == b.shape, field
+        np.testing.assert_allclose(a, b, atol=tol, rtol=0, err_msg=field)
+    # The appearance came from the crops: another image gives another one.
+    other = port.forward_batch(batch._replace(imgs=batch.imgs[::-1].copy()),
+                               use_gt_boxes=True, use_gt_masks=True,
+                               generator=torch.Generator().manual_seed(5))
+    assert not torch.equal(other.obj_repr, got.obj_repr)
