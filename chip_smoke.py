@@ -15,9 +15,14 @@ kernel) and the GT-appearance forward (``forward_batch(features=None)``:
 the crop forward kernel), compares the card with the CPU in f32, and
 times serving (CUDA events, then a ``torch.profiler`` breakdown of the
 device's time). Then it trains: a few steps of the default ``Config()``
-at batch 12 through the port's train loop (the crop kernels; the box
-gradients' kernel must not run), timed and profiled, and one f32 train
-step on the card against the same step on the CPU. Every phase prints one
+at batch 12 through ``train_step`` (the crop kernels; the box gradients'
+kernel must not run), timed and profiled; one f32 train step on the
+card against the same step on the CPU; the kernels' device times; and
+last the train CLI as a user runs it (``train.main``: 9 steps,
+checkpoints with the val sweeps, which run the f32 stem kernel, and best
+promotion, then a bitwise resume, a ``--preset quality`` run and
+serving its ``best/``; its checkpoints take about 5 GB of temporary
+disk). Every phase prints one
 line; any failure raises and the exit code is non-zero. Without a CUDA
 device it exits non-zero before printing any result.
 
@@ -37,6 +42,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -50,9 +56,13 @@ from http.server import HTTPServer
 import numpy as np
 import torch
 
+from scene_generation_tpu_torch import train as train_cli
+from scene_generation_tpu_torch.api import InferenceModel
 from scene_generation_tpu_torch.config import Config
 from scene_generation_tpu_torch.convert import save_checkpoint
-from scene_generation_tpu_torch.data import synthetic_batch, synthetic_vocab
+from scene_generation_tpu_torch.data import (SyntheticDataset, synthetic_batch,
+                                             synthetic_vocab)
+from scene_generation_tpu_torch.data.loader import DataLoader
 from scene_generation_tpu_torch.entry import build_model, train_entry
 from scene_generation_tpu_torch.ops import _cuda
 from scene_generation_tpu_torch.ops.compositor import (composite,
@@ -64,7 +74,7 @@ from scene_generation_tpu_torch.ops.sampling import (crop_matrices,
                                                       exact_f32_matmul)
 from scene_generation_tpu_torch.ops.stem import stem, stem_plain
 from scene_generation_tpu_torch.serve import Server, make_handler
-from scene_generation_tpu_torch.train import run as train_run
+from scene_generation_tpu_torch.trainer import checkpoint as ckpt_mod
 from scene_generation_tpu_torch.trainer.step import Draws, draw, train_step
 from scene_generation_tpu_torch.trainer.train_state import create_train_state
 
@@ -109,11 +119,15 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
 
 
 def device_kernels_ms(fn, reps: int = 10) -> dict:
-    """Device milliseconds of one call by kernel (each kernel's own time
-    under torch.profiler, averaged over ``reps`` calls after one warm-up):
-    the call's time on the card without the host's launch work, which
-    ``cuda_ms`` includes where the host is the slower of the two. Empty
-    when the profiler saw no device time."""
+    """Device milliseconds of one call by kernel, under torch.profiler over
+    ``reps`` calls after one warm-up: each kernel's mean time a launch
+    times its launches a call. That is the call's time on the card without
+    the host's launch work, which ``cuda_ms`` includes where the host is
+    the slower of the two. The profiler can record only some launches (its
+    count then is not a multiple of ``reps``): a kernel's launches a call
+    are its count over ``reps`` rounded, and a count more than a quarter
+    launch a call off a whole number (or under one a call) is not
+    measured. Empty when nothing was measured."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -122,7 +136,22 @@ def device_kernels_ms(fn, reps: int = 10) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key[:60]: device_ms(e) / reps for e in device_rows(prof)}
+    out, short = {}, []
+    for e in device_rows(prof):
+        per_call = e.count / reps
+        launches = round(per_call)
+        if launches < 1 or abs(per_call - launches) > 0.25:
+            print(f"device times not measured: the profiler recorded "
+                  f"{e.count} launches of {e.key[:60]} over {reps} calls",
+                  flush=True)
+            return {}
+        if e.count % reps:
+            short.append((e.key[:60], e.count))
+        out[e.key[:60]] = device_ms(e) / e.count * launches
+    if short:
+        print(f"the profiler recorded {short} over {reps} calls: per-launch "
+              "means", flush=True)
+    return out
 
 
 def device_total_ms(kernels: dict):
@@ -535,7 +564,7 @@ def check_crop(cfg: Config) -> dict:
 def stem_device_times(cfg: Config, rows: dict) -> None:
     """Each stem row's device time per call and its grouped-conv
     yardstick's (the profiler's own kernel times), added to ``rows``; run
-    after every end-to-end phase, as ``crop_device_times`` is."""
+    at the start of a process (``fresh_device_times``)."""
     for dtype in (torch.float32, torch.bfloat16):
         w, g = stem_inputs(cfg, dtype)
         dev = device_kernels_ms(lambda: stem(w, g))
@@ -552,11 +581,8 @@ def stem_device_times(cfg: Config, rows: dict) -> None:
 
 def crop_device_times(cfg: Config, rows: dict) -> None:
     """Each crop row's device time per call and its library call's (the
-    profiler's own kernel times), added to ``rows``. It runs after every
-    end-to-end phase: a profiler session seems to leave host work behind
-    that slows the launches after it (NVIDIA H100 80GB HBM3, 700 W: with
-    these sessions before it, the factored serving rate read 910-940
-    img/s against 1164-1193 without, at the same device busy time)."""
+    profiler's own kernel times), added to ``rows``; run at the start of a
+    process (``fresh_device_times``)."""
     for hh in (64, 32):
         for dtype in (torch.float32, torch.bfloat16):
             imgs, ry, rx, u, boxes = crop_case(cfg, hh, dtype)
@@ -580,8 +606,8 @@ def crop_device_times(cfg: Config, rows: dict) -> None:
 
 def compositor_device_times(cfg: Config, rows: dict) -> None:
     """The compositor's device time per call at the serving shape (the
-    profiler's own kernel times), added to ``rows``; run after every
-    end-to-end phase, as ``crop_device_times`` is."""
+    profiler's own kernel times), added to ``rows``; run at the start of a
+    process (``fresh_device_times``)."""
     case = compositor_case(cfg)
     for dtype in (torch.float32, torch.bfloat16):
         inputs = to_compositor(cfg, case, dtype)
@@ -591,6 +617,40 @@ def compositor_device_times(cfg: Config, rows: dict) -> None:
         say("kernel compositor device", dtype=str(dtype),
             device_ms=row["device_ms"], device_kernels=dev,
             bound_ms=row["bound_ms"], clocks_sm=sm_clock())
+
+
+def fresh_device_times(stem_rows: dict, comp_rows: dict,
+                       crop_rows: dict) -> None:
+    """Every kernel row's device times, each kernel's taken by
+    ``--only <kernel>`` in a process of its own and added to its rows.
+    torch.profiler records fewer of a kernel's launches the longer a
+    process has run (all of them at its start, 6 of 10 after this
+    script's end-to-end phases), and profiler sessions slow the host's
+    launches after them (the serving rate read 910-940 img/s against
+    1164-1193 without, at the same device busy time), so neither belongs
+    in this process. Each line the child prints is printed here too."""
+    for name in ("stem", "compositor", "crop"):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--only", name],
+            capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"--only {name} failed:\n"
+              f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        for line in proc.stdout.splitlines():
+            if not (line.startswith("[kernel ") and " device] " in line):
+                continue
+            print(line, flush=True)
+            tag, payload = line.split("] ", 1)
+            kernel, rec = tag.split()[1], json.loads(payload)
+            dtype = getattr(torch, rec["dtype"].split(".")[1])
+            if kernel == "stem":
+                row = stem_rows[dtype]
+            elif kernel == "compositor":
+                row = comp_rows[dtype]
+            else:
+                row = crop_rows[(kernel, rec["hh"], dtype)]
+            row.update({k: rec[k] for k in ("device_ms", "device_kernels",
+                                            "library_device_ms")
+                        if k in rec})
 
 
 def check_forward_only_guards() -> None:
@@ -946,7 +1006,7 @@ def serving_rate(ckpts: dict) -> dict:
 def train_on_card() -> dict:
     """Phase 8: the default ``Config()`` (generator f32, discriminators
     and VGG bf16; PyTorch's default TF32 flags, as the train CLI runs) at
-    batch 12 through the port's train loop: TRAIN_STEPS steps, every loss
+    batch 12 through ``train_step``: TRAIN_STEPS steps, every loss
     term finite each step, every parameter tree moved by the first, the
     crop kernels launched; then ms/step by CUDA events (median after
     warm-up), peak device memory, and one step under torch.profiler."""
@@ -963,12 +1023,19 @@ def train_on_card() -> dict:
                 moved[name] = sum(flags) / len(flags)
 
     _cuda.LAUNCHES.clear()
-    logged = train_run(state, TRAIN_STEPS, print_every=1, on_step=on_step)
+    logged = []
+    for i in range(TRAIN_STEPS):
+        metrics = train_step(state, synthetic_batch(
+            state.cfg, seed=SEED + i, batch_size=TRAIN_BATCH))
+        on_step(i, metrics)
+        vals = {k: float(v) for k, v in metrics.items()
+                if not k.startswith("_")}
+        check(all(np.isfinite(v) for v in vals.values()),
+              f"step {i + 1}: non-finite loss terms {vals}")
+        logged.append(vals)
     torch.cuda.synchronize()
     launches = dict(_cuda.LAUNCHES)
     del before
-    check(len(logged) == TRAIN_STEPS, f"{len(logged)} of {TRAIN_STEPS} "
-          "steps logged")           # train_run raises on a non-finite term
     # The box head's gradient is zero on a use_gt = 0 step, so a few
     # leaves may stay; every tree must move almost all of its leaves.
     check(all(v > 0.9 for v in moved.values()),
@@ -1021,6 +1088,227 @@ def train_on_card() -> dict:
     return out
 
 
+# The CLI's synthetic val set is max(8, size // 8) images in whole
+# batches, as in the JAX CLI: 96 images give a val batch of 12 (fewer give
+# none, and the sweeps would run nothing) and 8 train batches an epoch, so
+# t=9 opens epoch 2 and the resume continues it mid-epoch.
+CLI_STEPS = 9
+CLI_EVERY = 3
+CLI_SYNTHETIC = 96
+
+
+def _cli_main(argv, on_step=None):
+    """``train.main(argv)`` in this process (so that ``_cuda.LAUNCHES``
+    counts its launches), its printed lines captured and returned."""
+    import io
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            state, meta = train_cli.main(argv, on_step=on_step)
+    except BaseException:
+        print(out.getvalue()[-4000:], flush=True)
+        raise
+    return state, meta, out.getvalue()
+
+
+@contextlib.contextmanager
+def checkpoint_timers():
+    """Time each ``CheckpointManager.save`` call (the loop's hold: the
+    call, then the device finishing the snapshot it queued), each
+    snapshot's device-to-host copy and each file write (both on the
+    background thread)."""
+    times = {"hold_s": [], "hold_synced_s": [], "to_host_s": [],
+             "write_s": []}
+    cls = ckpt_mod.CheckpointManager
+    orig = (cls.save, ckpt_mod._to_host, ckpt_mod._write_state)
+
+    def timed(key, fn):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            times[key].append(time.perf_counter() - t)
+            return out
+        return wrapper
+
+    def save(self, state, best=False):
+        t = time.perf_counter()
+        orig[0](self, state, best)
+        times["hold_s"].append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        times["hold_synced_s"].append(time.perf_counter() - t)
+
+    cls.save = save
+    ckpt_mod._to_host = timed("to_host_s", orig[1])
+    ckpt_mod._write_state = timed("write_s", orig[2])
+    try:
+        yield times
+    finally:
+        cls.save, ckpt_mod._to_host, ckpt_mod._write_state = orig
+
+
+def train_cli_phase(step_ms: float) -> dict:
+    """Phase 10 (last): the port's train CLI as a user runs it
+    (``train.main([...])``) at the full default ``Config()``, batch 12:
+    CLI_STEPS steps over a CLI_SYNTHETIC-image synthetic set (an epoch
+    boundary inside), a checkpoint every CLI_EVERY with the val-gt and
+    val-sg sweeps and best promotion, loss lines every step. Then a
+    resume for 2 more steps (every restored tensor bitwise the saved one,
+    the first batch the straight stream's next one), a 2-step
+    ``--preset quality`` run (bf16 Adam mu) and
+    ``InferenceModel.from_checkpoint(best=True)`` serving its best state
+    at b16 in bf16."""
+    tmp = tempfile.mkdtemp(prefix="sg_train_cli_")
+    free_gib = shutil.disk_usage(tmp).free / 2 ** 30
+    common = ["--synthetic", "--synthetic_size", str(CLI_SYNTHETIC),
+              "--batch_size", str(TRAIN_BATCH), "--print_every", "1",
+              "--num_val_samples", "24", "--timing", "--output_dir", tmp,
+              "--seed", str(SEED)]
+    losses_finite = []
+
+    def on_step(t, batch, metrics):
+        losses_finite.append(all(bool(torch.isfinite(v).all())
+                                  for k, v in metrics.items()
+                                  if not k.startswith("_")))
+
+    try:
+        # 1. The straight run: checkpoints at t=3, 6 and 9.
+        _cuda.LAUNCHES.clear()
+        with checkpoint_timers() as times:
+            state, meta, log = _cli_main(
+                common + ["--num_iterations", str(CLI_STEPS),
+                          "--checkpoint_every", str(CLI_EVERY)], on_step)
+        launches = dict(_cuda.LAUNCHES)
+        check(len(losses_finite) == CLI_STEPS and all(losses_finite),
+              f"train CLI losses not finite at every step: {losses_finite}")
+        root = os.path.join(tmp, "checkpoint")
+        with open(os.path.join(root, "meta.json")) as f:
+            disk = json.load(f)
+        # The JAX CLI's count: steps 1-8 are epoch 1, step 9 epoch 2.
+        per_epoch = CLI_SYNTHETIC // TRAIN_BATCH
+        check(disk["counters"]["t"] == CLI_STEPS
+              and disk["counters"]["epoch"] == (CLI_STEPS - 1) // per_epoch
+              + 1, f"meta counters {disk['counters']}")
+        ts = list(range(CLI_EVERY, CLI_STEPS + 1, CLI_EVERY))
+        check(disk["checkpoint_ts"] == ts,
+              f"checkpoint_ts {disk['checkpoint_ts']}")
+        check(len(disk["best_t"]) > 0, "no best promotion")
+        ious = {k: disk[k] for k in ("val_gt_iou", "val_sg_iou")}
+        check(all(len(v) == len(ts) and all(np.isfinite(v))
+                  for v in ious.values()), f"val IoUs {ious}")
+        for d in ("last", "best"):
+            check(os.path.exists(os.path.join(root, d, "state.pt")),
+                  f"no {d}/state.pt")
+        check(launches.get("crop_fwd", 0) >= 4 * CLI_STEPS
+              and launches.get("crop_bwd", 0) >= CLI_STEPS,
+              f"crop kernels not launched on every step: {launches}")
+        f32_stem = launches.get("stem", 0) - launches.get("stem_tc", 0)
+        check(f32_stem > 0, f"the val sweeps ran no f32 stem: {launches}")
+        check(launches.get("crop_bwd_boxes", 0) == 0,
+              f"the train CLI launched the d_ry / d_rx kernels: {launches}")
+        timing = [float(ln.split()[1]) for ln in log.splitlines()
+                  if ln.strip().startswith("[timing]")]
+        gib = os.path.getsize(os.path.join(root, "last", "state.pt")) / 2 ** 30
+        saved = ckpt_mod.tree_map(lambda t: t.detach().cpu().clone(),
+                                  state.state_dict())
+        del state
+        torch.cuda.empty_cache()
+
+        # 2. The resume: t=9 restored bitwise, then t=10 and t=11.
+        restored, first = [], {}
+        orig_restore = ckpt_mod.CheckpointManager.restore
+
+        def restore(self, template, best=False):
+            out = orig_restore(self, template, best)
+            restored.append(ckpt_mod.tree_map(
+                lambda t: t.detach().cpu().clone(), out.state_dict()))
+            return out
+
+        def first_batch(t, batch, metrics):
+            first.setdefault(t, [torch.as_tensor(a).cpu().numpy()
+                                 for a in batch])
+
+        ckpt_mod.CheckpointManager.restore = restore
+        try:
+            state, meta2, log2 = _cli_main(
+                common + ["--num_iterations", str(CLI_STEPS + 2),
+                          "--checkpoint_every", str(CLI_EVERY),
+                          "--restore_from_checkpoint", "1"], first_batch)
+        finally:
+            ckpt_mod.CheckpointManager.restore = orig_restore
+        check(f"restored checkpoint at t={CLI_STEPS}" in log2,
+              f"the resume did not report t={CLI_STEPS}")
+        check(meta2["counters"]["t"] == CLI_STEPS + 2,
+              f"resumed counters {meta2['counters']}")
+        leaves = list(ckpt_mod.tree_leaves(saved))
+        got = list(ckpt_mod.tree_leaves(restored[0]))
+        check([p for p, _ in leaves] == [p for p, _ in got],
+              "restored state has other leaves than the saved one")
+        differ = [p for (p, a), (_, b) in zip(leaves, got)
+                  if not (torch.equal(a, b) and a.dtype == b.dtype
+                          if isinstance(a, torch.Tensor) else a == b)]
+        check(not differ, f"restored leaves differ from the saved: "
+              f"{differ[:5]}")
+        # The straight stream's next batch (t=10: epoch 2, its second).
+        cfg = train_cli.config_from_args(train_cli.parse_args(common))
+        loader = DataLoader(SyntheticDataset(cfg, CLI_SYNTHETIC, SEED),
+                            TRAIN_BATCH, cfg.data.max_objs,
+                            cfg.data.max_triples, shuffle=True, seed=SEED)
+        loader.set_epoch(CLI_STEPS // per_epoch + 1)
+        want = list(loader)[CLI_STEPS % per_epoch]
+        check(CLI_STEPS + 1 in first and all(
+            np.array_equal(a, b) for a, b in zip(first[CLI_STEPS + 1], want)),
+            f"the resumed run's first batch is not the straight run's "
+            f"t={CLI_STEPS + 1}")
+        del state, saved, restored
+        torch.cuda.empty_cache()
+
+        # 3. --preset quality: bf16 Adam mu, finite losses; its best/
+        # (bf16 config) served at b16.
+        losses_finite.clear()
+        state, meta3, _ = _cli_main(
+            common + ["--preset", "quality", "--num_iterations", "2",
+                      "--checkpoint_every", "2"], on_step)
+        mu_dtypes = {name: sorted({str(m.dtype) for m in
+                                   opt.state_dict()["mu"]})
+                     for name, _, opt in state.trees()}
+        check(all(v == ["torch.bfloat16"] for v in mu_dtypes.values()),
+              f"--preset quality mu dtypes {mu_dtypes}")
+        check(len(losses_finite) == 2 and all(losses_finite),
+              f"--preset quality losses not finite: {losses_finite}")
+        del state
+        torch.cuda.empty_cache()
+        served = InferenceModel.from_checkpoint(tmp, best=True,
+                                                device="cuda")
+        batch = synthetic_batch(served.cfg, seed=4, batch_size=BATCH)
+        n, o = batch.objs.shape
+        _cuda.LAUNCHES.clear()
+        out = served.forward_batch(
+            batch, features=np.zeros((n, o, served.cfg.model.rep_size),
+                                     np.float32),
+            features_mask=np.zeros((n, o), np.float32))
+        torch.cuda.synchronize()
+        serve_launches = dict(_cuda.LAUNCHES)
+        check(tuple(out.imgs_pred.shape) == (BATCH, 128, 128, 3)
+              and bool(torch.isfinite(out.imgs_pred).all()),
+              "serving best/ gave no finite b16 images")
+        check(serve_launches.get("stem_tc", 0) > 0,
+              f"serving best/ ran no tensor-core stem: {serve_launches}")
+        del served, out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result = dict(
+        steps=CLI_STEPS, launches=launches, f32_stem_launches=f32_stem,
+        checkpoint_gib=gib, free_disk_gib_before=free_gib,
+        save_hold_s=times["hold_s"], save_hold_synced_s=times["hold_synced_s"],
+        to_host_s=times["to_host_s"], write_s=times["write_s"],
+        timing_ms_per_step=timing, phase8_ms_per_step=step_ms,
+        counters=disk["counters"], best_t=disk["best_t"], val_iou=ious,
+        resumed_leaves=len(leaves), quality_mu=mu_dtypes,
+        serve_best_launches=serve_launches)
+    say("train CLI", **result)
+    return result
+
+
 def train_card_vs_cpu() -> None:
     """Phase 9: one train step of the full-width default ``Config()`` with
     every dtype f32 (TF32 off), batch 2, from one seed-initialised state
@@ -1063,7 +1351,7 @@ def train_card_vs_cpu() -> None:
     trees = zip(states["cuda"].trees(), states["cpu"].trees())
     for (name, m_gpu, o_gpu), (_, m_cpu, o_cpu) in trees:
         pairs = list(zip(m_gpu.parameters(), m_cpu.parameters()))
-        moms = [(o_gpu.state[a]["exp_avg"].cpu(), o_cpu.state[b]["exp_avg"])
+        moms = [(o_gpu.state[a]["mu"].cpu(), o_cpu.state[b]["mu"])
                 for a, b in pairs]
         tree_max = max(float(b.abs().max()) for _, b in moms)
         for (pname, _), (a, b) in zip(m_cpu.named_parameters(), moms):
@@ -1176,15 +1464,16 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ckpts = {"factored": os.path.join(tmp, "factored"),
                  "dense": os.path.join(tmp, "dense")}
-        save_checkpoint(ckpts["factored"], model_cpu, cfg,
-                        synthetic_vocab(cfg.model.num_objs))
-        # The dense variant: the same weights under factored_stem=False.
-        os.makedirs(ckpts["dense"])
-        for f in ("model.pt", "vocab.json"):
-            os.symlink(os.path.join(ckpts["factored"], f),
-                       os.path.join(ckpts["dense"], f))
-        with open(os.path.join(ckpts["dense"], "config.json"), "w") as f:
-            f.write(with_model(cfg, factored_stem=False).to_json())
+        vocab = synthetic_vocab(cfg.model.num_objs)
+        save_checkpoint(ckpts["factored"], model_cpu, cfg, vocab)
+        # The dense variant: the same weights (last/ linked) under a meta
+        # with factored_stem=False.
+        dense = ckpt_mod.CheckpointManager(ckpts["dense"], use_async=False)
+        os.symlink(os.path.dirname(ckpt_mod.CheckpointManager(
+            ckpts["factored"]).state_path()),
+            os.path.dirname(dense.state_path()))
+        dense.save_meta(dense.new_meta(with_model(cfg, factored_stem=False),
+                                       vocab))
         say("checkpoint", mask_logit_spread_before=spread)
         serve_launches = serve_and_forward(ckpts["factored"])
         dense_launches = dense_forward(ckpts["dense"])
@@ -1196,13 +1485,20 @@ def main(argv=None) -> int:
         train = train_on_card()
     train_card_vs_cpu()
     generator_f64()
-    stem_device_times(cfg, stem_rows)
-    compositor_device_times(cfg, comp_rows)
-    crop_device_times(Config(), crop_rows)
+    fresh_device_times(stem_rows, comp_rows, crop_rows)
+    # Last: this slice's path, after every timing of the kernels.
+    with torch_default_tf32():
+        cli = train_cli_phase(train["ms_per_step"])
+
+    # Each kernel's launches in the train CLI phase (the stem's: the f32
+    # kernel of the val sweeps), beside the main path's count.
+    cli_launches = dict(cli["launches"], stem=cli["f32_stem_launches"])
 
     def row(name, src, replaces, launches, r):
         return dict(name=name, route="cuda", source=src, replaces=replaces,
-                    launches=launches, max_abs_err=r["max_abs_err"],
+                    launches=launches,
+                    train_cli_launches=cli_launches.get(name, 0),
+                    max_abs_err=r["max_abs_err"],
                     ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"],
@@ -1237,7 +1533,8 @@ def main(argv=None) -> int:
     ]
     say("done", seconds=time.perf_counter() - t0,
         img_per_s={k: v["img_per_s"] for k, v in rates.items()},
-        train_ms_per_step=train["ms_per_step"])
+        train_ms_per_step=train["ms_per_step"],
+        train_cli_ms_per_step=cli["timing_ms_per_step"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -29,12 +29,17 @@ class InferenceModel:
         self.generator = torch.Generator().manual_seed(seed)
 
     @classmethod
-    def from_checkpoint(cls, output_dir: str, device: Optional[str] = None,
-                        features_path: Optional[str] = None
-                        ) -> "InferenceModel":
-        """Load ``model.pt`` / ``config.json`` / ``vocab.json`` from
-        ``output_dir`` onto ``device`` (CUDA unless ``device="cpu"``)."""
-        cfg, vocab, model = load_checkpoint(output_dir, device)
+    def from_checkpoint(cls, output_dir: str,
+                        checkpoint_name: str = "checkpoint",
+                        best: bool = False,
+                        features_path: Optional[str] = None,
+                        device: Optional[str] = None) -> "InferenceModel":
+        """The generator of ``<output_dir>/<checkpoint_name>``'s ``last/``
+        (``best/`` with ``best``) state, with ``meta.json``'s config and
+        vocab, on ``device`` (CUDA unless ``device="cpu"``): a training
+        run's checkpoint or ``convert.save_checkpoint``'s."""
+        cfg, vocab, model = load_checkpoint(output_dir, device,
+                                            checkpoint_name, best)
         features = features_one = None
         if features_path:
             features = np.load(features_path, allow_pickle=True).item()

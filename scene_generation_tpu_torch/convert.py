@@ -6,7 +6,8 @@ the output of ``jax.device_get``) onto this package's ``SceneModel``
 state_dict; its siblings do the same for the rest of the JAX train state
 (``d_img_state_dict_from_jax``, ``d_obj_state_dict_from_jax``,
 ``d_mask_state_dict_from_jax``, ``vgg_state_dict_from_jax``,
-``pool_from_jax``), so that both packages can step from one state. Every
+``pool_from_jax``), so that both packages can step from one state, and
+``inception_state_dict_from_jax`` maps the evaluation's InceptionV3. Every
 map is linear in the leaves, so it carries an optimizer's moment trees
 (which have the parameters' structure) across as well:
 
@@ -25,16 +26,22 @@ split along their leading axis; unrolled ``resblock_i`` are taken as they
 are. The map is strict: a key it does not consume, or one it needs and
 does not find, raises.
 
-The port's own checkpoint is a directory with ``model.pt`` (the
-state_dict), ``config.json`` and ``vocab.json``: ``save_checkpoint`` and
-``load_checkpoint``.
+``adam_state_from_jax`` carries an optax ``ScaleByAdamState`` (count, mu,
+nu) onto the port's optimizer state the same way.
+
+The port has one checkpoint format, the train CLI's
+(``trainer/checkpoint.py``): ``<output_dir>/<checkpoint_name>/{last,best}/
+state.pt`` and ``meta.json``. ``save_checkpoint`` writes a serving
+checkpoint in it (the ``g`` tree alone and a meta with the config and
+vocab) and ``load_checkpoint`` reads the generator of any checkpoint in it.
 """
 from __future__ import annotations
 
 import json
 import math
 import os
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import (Any, Callable, Dict, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -43,6 +50,7 @@ from scene_generation_tpu_torch import resolve_device
 from scene_generation_tpu_torch.config import (Config, DiscriminatorConfig,
                                                ModelConfig)
 from scene_generation_tpu_torch.models.model import SceneModel
+from scene_generation_tpu_torch.trainer.checkpoint import CheckpointManager
 from scene_generation_tpu_torch.trainer.pools import VectorPool
 
 
@@ -271,6 +279,37 @@ def vgg_state_dict_from_jax(params: Mapping[str, Any]
     return sd
 
 
+def inception_state_dict_from_jax(variables: Mapping[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX package's flax ``InceptionV3`` variables (params +
+    batch_stats) -> the port's ``models.inception.InceptionV3`` (the
+    torchvision names: ``<block>.<branch>.conv.weight``, ``.bn.weight`` /
+    ``bias`` / ``running_mean`` / ``running_var``, ``fc``)."""
+    v = _collect(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    for key in sorted(k for k in v._flat if k.startswith("params/")):
+        path = key.split("/")[1:]
+        name, leaf = ".".join(path[:-1]), path[-1]
+        if path[-2] == "conv":
+            sd[f"{name}.weight"] = _t(v.take(key).transpose(3, 2, 0, 1))
+        elif path[-2] == "bn":
+            sd[f"{name}.{'weight' if leaf == 'scale' else 'bias'}"] = \
+                _t(v.take(key))
+            if leaf == "scale":
+                base = "/".join(path[:-1])
+                sd[f"{name}.running_mean"] = _t(
+                    v.take(f"batch_stats/{base}/mean"))
+                sd[f"{name}.running_var"] = _t(
+                    v.take(f"batch_stats/{base}/var"))
+                sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+        elif leaf == "kernel":                                   # fc
+            sd[f"{name}.weight"] = _t(v.take(key).T)
+        else:
+            sd[f"{name}.bias"] = _t(v.take(key))
+    v.finish()
+    return sd
+
+
 def pool_from_jax(pool: Any, device=None) -> VectorPool:
     """The JAX ``VectorPoolState`` (vecs, counts) -> the port's pool."""
     vecs, counts = pool
@@ -278,32 +317,70 @@ def pool_from_jax(pool: Any, device=None) -> VectorPool:
                       torch.from_numpy(np.array(counts, np.int64)).to(device))
 
 
-def save_checkpoint(directory: str, model: SceneModel, cfg: Config,
-                    vocab: Dict) -> None:
-    """Write ``model.pt`` (the state_dict, f32 on the CPU),
-    ``config.json`` and ``vocab.json`` into ``directory``."""
-    os.makedirs(directory, exist_ok=True)
+def adam_state_from_jax(adam_state: Any, tree_from_jax: Callable,
+                        params: Sequence[Tuple[str, torch.Tensor]]) -> dict:
+    """An optax ``ScaleByAdamState`` (``count``, ``mu``, ``nu``; the first
+    entry of an ``optax.adam`` chain state) -> the port's optimizer state
+    for the parameters ``params`` (``named_parameters()`` of the module).
+
+    ``tree_from_jax`` maps a tree of the JAX parameters' structure onto the
+    module's state_dict keys (``state_dict_from_jax`` and its siblings;
+    for the generator and D_obj it needs the ``batch_stats`` too, which the
+    caller supplies). Moments keep their stored dtype."""
+    count = int(np.asarray(adam_state.count))
+    sd = {}
+    for name in ("mu", "nu"):
+        tree = tree_from_jax(getattr(adam_state, name))
+        dtype = _torch_dtype(_first_leaf(getattr(adam_state, name)).dtype)
+        sd[name] = [tree[k].to(dtype) for k, _ in params]
+    return {"count": count, "mu": sd["mu"], "nu": sd["nu"]}
+
+
+def _first_leaf(tree: Any):
+    while isinstance(tree, Mapping):
+        tree = next(iter(tree.values()))
+    return np.asarray(tree)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    name = np.dtype(dtype).name
+    return {"float32": torch.float32, "float16": torch.float16,
+            "bfloat16": torch.bfloat16}[name]
+
+
+def save_checkpoint(output_dir: str, model: SceneModel, cfg: Config,
+                    vocab: Dict, checkpoint_name: str = "checkpoint",
+                    best: bool = False) -> None:
+    """Write a serving checkpoint of ``model`` in the train CLI's layout:
+    ``<output_dir>/<checkpoint_name>/last/state.pt`` (``best/`` with
+    ``best``) holding ``{"g": state_dict}`` (f32, on the CPU), and
+    ``meta.json`` with ``cfg`` and ``vocab``."""
+    ckpt = CheckpointManager(output_dir, checkpoint_name, use_async=False)
     sd = {k: t.detach().float().cpu() for k, t in model.state_dict().items()}
-    torch.save(sd, os.path.join(directory, "model.pt"))
-    with open(os.path.join(directory, "config.json"), "w") as f:
-        f.write(cfg.to_json())
-    with open(os.path.join(directory, "vocab.json"), "w") as f:
-        json.dump(vocab, f)
+    ckpt.save({"g": sd}, best=best)
+    ckpt.save_meta(ckpt.new_meta(cfg, vocab))
 
 
-def load_checkpoint(directory: str, device: Optional[str] = None
+def load_checkpoint(output_dir: str, device: Optional[str] = None,
+                    checkpoint_name: str = "checkpoint", best: bool = False
                     ) -> Tuple[Config, Dict, SceneModel]:
-    """Read a checkpoint written by ``save_checkpoint``: the config, the
-    vocab, and the model on ``device`` (CUDA unless ``device="cpu"``) in
-    the config's compute dtype, in eval mode."""
+    """The config, the vocab and the generator of a checkpoint in the
+    train CLI's layout (a training run's or ``save_checkpoint``'s): the
+    model on ``device`` (CUDA unless ``device="cpu"``) in the config's
+    compute dtype, in eval mode."""
     dev = resolve_device(device)
-    with open(os.path.join(directory, "config.json")) as f:
-        cfg = Config.from_json(f.read())
-    with open(os.path.join(directory, "vocab.json")) as f:
-        vocab = json.load(f)
+    ckpt = CheckpointManager(output_dir, checkpoint_name, use_async=False)
+    meta = ckpt.load_meta()
+    if meta is None:
+        raise FileNotFoundError(f"no checkpoint meta under {ckpt.root}")
+    path = ckpt.state_path(best)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no checkpoint state at {path}")
+    cfg = Config.from_json(json.dumps(meta["config"]))
     model = SceneModel(cfg.model)
-    sd = torch.load(os.path.join(directory, "model.pt"), map_location="cpu",
-                    weights_only=True)
-    model.load_state_dict(sd, strict=True)
+    # mmap: only the generator's tensors of a whole train state are read.
+    state = torch.load(path, map_location="cpu", weights_only=True,
+                       mmap=True)
+    model.load_state_dict(state["g"], strict=True)
     model = model.to(device=dev, dtype=cfg.model.torch_compute_dtype).eval()
-    return cfg, vocab, model
+    return cfg, meta["vocab"], model

@@ -98,3 +98,18 @@ def encode_png(img: np.ndarray) -> bytes:
     header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
     return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
             + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def one_hot_to_rgb_compact(layout_one_hot) -> np.ndarray:
+    """Layout channels (NHWC) -> random-colour RGB uint8 (a copy of the JAX
+    package's ``vis.one_hot_to_rgb_compact``; reference trainer.py:394-397):
+    the seed-0 palette contraction is done where the layout lies, so only
+    the (N, H, W, 3) projection leaves the card."""
+    import torch
+    x = torch.as_tensor(layout_one_hot).float()
+    colors = np.random.RandomState(0).randint(
+        0, 256, (x.shape[-1], 3)).astype(np.float32)
+    rgb = torch.einsum("nhwc,cd->nhwd", x,
+                       torch.from_numpy(colors).to(x.device)).cpu().numpy()
+    maxv = rgb.max() or 1.0
+    return (rgb * (255.0 / maxv)).astype(np.uint8)

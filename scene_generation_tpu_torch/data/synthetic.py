@@ -139,3 +139,22 @@ def synthetic_batch(cfg: Config, seed: int = 0,
     n = batch_size or cfg.data.batch_size
     examples = [synthetic_example(cfg, rng) for _ in range(n)]
     return collate(examples, cfg.data.max_objs, cfg.data.max_triples)
+
+
+class SyntheticDataset:
+    """Map-style dataset over procedurally generated scenes: example ``i``
+    is drawn from ``RandomState(seed * 100003 + i)``, as in the JAX
+    package, so both give the same example for the same (seed, i)."""
+
+    def __init__(self, cfg: Config, size: int = 256, seed: int = 0):
+        self.cfg = cfg
+        self.size = size
+        self.seed = seed
+        self.vocab = synthetic_vocab(cfg.model.num_objs)
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __getitem__(self, index: int) -> Example:
+        rng = np.random.RandomState(self.seed * 100003 + index)
+        return synthetic_example(self.cfg, rng)

@@ -99,7 +99,10 @@ class StemConv(nn.Module):
         g = torch.einsum("nod,cdhw->nhwoc", vecs,
                          self.conv.weight.to(vecs.dtype)).contiguous()
         contract = stem_patches if self.training else stem
-        return contract(weights, g) + self.conv.bias.to(vecs.dtype)
+        # Under autocast g comes out in the autocast dtype: the weight
+        # field follows it (the stem kernel takes one dtype).
+        return contract(weights.to(g.dtype), g) + self.conv.bias.to(
+            vecs.dtype)
 
 
 class GlobalGenerator(nn.Module):

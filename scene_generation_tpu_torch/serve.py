@@ -10,8 +10,8 @@
   GET /healthz   -> {"status": "ok", "device": "...", "num_classes": N}
   GET /vocab     -> {"objects": [...], "predicates": [...]}
 
-Run: python -m scene_generation_tpu_torch.serve --output_dir <checkpoint dir>
-     [--port 8001] [--device cuda|cpu]
+Run: python -m scene_generation_tpu_torch.serve --output_dir <train output dir>
+     [--checkpoint_name checkpoint] [--best 1] [--port 8001] [--device cpu]
 
 PNGs are written by a standard-library encoder and layouts are drawn in
 numpy, so serving needs neither PIL nor matplotlib.
@@ -37,10 +37,12 @@ def _png_b64(arr_uint8: np.ndarray) -> str:
 
 
 class Server:
-    def __init__(self, output_dir: str, features_path: Optional[str] = None,
+    def __init__(self, output_dir: str, checkpoint_name: str = "checkpoint",
+                 features_path: Optional[str] = None, best: bool = False,
                  device: Optional[str] = None):
         self.model = InferenceModel.from_checkpoint(
-            output_dir, device=device, features_path=features_path)
+            output_dir, checkpoint_name, best=best,
+            features_path=features_path, device=device)
 
     def generate(self, payload: dict) -> dict:
         out, batch = self.model.forward_json(payload["scene_graphs"])
@@ -102,13 +104,17 @@ def make_handler(server: Server):
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--output_dir", required=True,
-                   help="port checkpoint: model.pt, config.json, vocab.json")
+                   help="a train run's output dir (or save_checkpoint's)")
+    p.add_argument("--checkpoint_name", default="checkpoint")
     p.add_argument("--features_path", default=None)
+    p.add_argument("--best", type=int, default=0,
+                   help="1: serve best/ instead of last/")
     p.add_argument("--port", type=int, default=8001)
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     a = p.parse_args(argv)
-    server = Server(a.output_dir, a.features_path, a.device)
+    server = Server(a.output_dir, a.checkpoint_name, a.features_path,
+                    bool(a.best), a.device)
     httpd = HTTPServer(("0.0.0.0", a.port), make_handler(server))
     print(f"serving on http://localhost:{a.port} "
           f"(POST /generate, GET /vocab, GET /healthz)")

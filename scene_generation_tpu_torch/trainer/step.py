@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from scene_generation_tpu_torch import losses as L
+from scene_generation_tpu_torch.config import ModelConfig
 from scene_generation_tpu_torch.data.batching import Batch
 from scene_generation_tpu_torch.ops.images import wire_to_float
 from scene_generation_tpu_torch.ops.layout import masks_to_layout
@@ -64,13 +65,13 @@ def batch_to(batch: Batch, device: torch.device) -> Batch:
     return Batch(*(torch.as_tensor(a, device=device) for a in batch))
 
 
-def _generator_dtype(state: TrainState):
+def generator_dtype(mc: ModelConfig, device: torch.device):
     """The generator's compute dtype: f32 runs as it is, another dtype
-    under ``torch.autocast``."""
-    dtype = state.cfg.model.torch_compute_dtype
+    under ``torch.autocast`` (parameters stay f32)."""
+    dtype = mc.torch_compute_dtype
     if dtype == torch.float32:
         return contextlib.nullcontext()
-    return torch.autocast(state.device.type, dtype=dtype)
+    return torch.autocast(device.type, dtype=dtype)
 
 
 def _params(opt: torch.optim.Optimizer):
@@ -92,6 +93,9 @@ def train_step(state: TrainState, batch: Batch,
     d = draw(state) if draws is None else Draws(
         *(torch.as_tensor(t, device=dev) for t in draws))
     use_gt = d.use_gt.float()
+    # The gradients' storage dtype at the backward-to-optimizer boundary
+    # (the moment math promotes it back, as optax does).
+    gd = optim.storage_dtype(cfg.train.grads_dtype)
 
     imgs = wire_to_float(b.imgs)
     objs, boxes, masks, obj_mask = b.objs, b.boxes, b.masks, b.obj_mask
@@ -104,7 +108,7 @@ def train_step(state: TrainState, batch: Batch,
     # 1. Generator update: forward, losses (VGG and the three D probes),
     # backward and Adam.
     with record_function("train_step/g_forward"):
-        with _generator_dtype(state):
+        with generator_dtype(mc, dev):
             out = state.model(objs, b.triples, b.attributes * use_gt,
                               obj_mask, b.triple_mask, d.mask_noise.float(),
                               imgs=imgs, boxes_gt=boxes, masks_gt=masks)
@@ -160,7 +164,7 @@ def train_step(state: TrainState, batch: Batch,
         for v in terms.values():
             total = total + v
     with record_function("train_step/g_backward"):
-        optim.step(state.opt_g, total, _params(state.opt_g))
+        optim.step(state.opt_g, total, _params(state.opt_g), gd)
     metrics.update(terms)
     metrics["total_loss"] = total
 
@@ -187,7 +191,8 @@ def train_step(state: TrainState, batch: Batch,
         sr = state.d_mask(masks_flat, one_hot_flat)
         fake = L.multiscale_gan_loss(sf, False, use_lsgan, w=flat_w) * 0.5
         real = L.multiscale_gan_loss(sr, True, use_lsgan, w=flat_w) * 0.5
-        optim.step(state.opt_d_mask, fake + real, _params(state.opt_d_mask))
+        optim.step(state.opt_d_mask, fake + real,
+                   _params(state.opt_d_mask), gd)
         metrics.update(fake_loss=fake, real_loss=real)
 
     # 4. D_obj update: the fake pass (GT boxes) before the real pass.
@@ -198,7 +203,7 @@ def train_step(state: TrainState, batch: Batch,
         ac_real = L.masked_cross_entropy(lr, objs, w=obj_mask)
         ac_fake = L.masked_cross_entropy(lf, objs, w=obj_mask)
         optim.step(state.opt_d_obj, gan + ac_real + ac_fake,
-                   _params(state.opt_d_obj))
+                   _params(state.opt_d_obj), gd)
         metrics.update(d_obj_gan_loss=gan, d_ac_loss_real=ac_real,
                        d_ac_loss_fake=ac_fake)
 
@@ -217,7 +222,7 @@ def train_step(state: TrainState, batch: Batch,
                 use_lsgan) * 0.5,
         }
         optim.step(state.opt_d_img, sum(d_terms.values()),
-                   _params(state.opt_d_img))
+                   _params(state.opt_d_img), gd)
         metrics.update(d_terms)
 
     state.step += 1

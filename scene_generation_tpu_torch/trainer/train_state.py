@@ -13,7 +13,18 @@ when that is not f32 (``trainer/step.py``). Serving is unchanged: it
 stores its weights in the compute dtype (``model.to(dtype)``).
 
 Optimizers (the reference's): G, D_img and D_obj at ``learning_rate``,
-D_mask at ``mask_learning_rate``, betas (beta1, beta2).
+D_mask at ``mask_learning_rate``, betas (beta1, beta2), moments stored in
+``adam_mu_dtype`` / ``adam_nu_dtype`` (``trainer/optim.py``).
+
+``state_dict()`` / ``load_state_dict()`` cover everything a step reads
+and writes: the four module trees with their batch-norm buffers, the four
+optimizers, the pool, ``step`` and the random generator's state (the
+step draws its ``use_gt`` coin, mask noise and pool base from it), so a
+restored state steps on exactly as the saved one would have (``gen`` None,
+as an exported JAX state has it, seeds the generator from the config's
+seed). The generator state is the device's: a state saved on the card
+resumes on the card. The VGG
+features are not in it: they are fixed, rebuilt by ``create_train_state``.
 """
 from __future__ import annotations
 
@@ -29,7 +40,7 @@ from scene_generation_tpu_torch.models.discriminators import (
 from scene_generation_tpu_torch.models.vgg import (Vgg19Features,
                                                    load_torch_vgg19)
 from scene_generation_tpu_torch.trainer.optim import adam
-from scene_generation_tpu_torch.trainer.pools import create_pool
+from scene_generation_tpu_torch.trainer.pools import VectorPool, create_pool
 
 
 class TrainState:
@@ -66,6 +77,31 @@ class TrainState:
                 ("d_img", self.d_img, self.opt_d_img),
                 ("d_obj", self.d_obj, self.opt_d_obj),
                 ("d_mask", self.d_mask, self.opt_d_mask))
+
+    def state_dict(self) -> dict:
+        """The whole state as a tree of the live tensors (not copies):
+        ``{g, d_img, d_obj, d_mask}`` module state dicts, ``opt_<tree>``
+        optimizer states, ``pool``, ``step`` and ``gen``."""
+        sd = {}
+        for name, module, opt in self.trees():
+            sd[name] = module.state_dict()
+            sd[f"opt_{name}"] = opt.state_dict()
+        sd["pool"] = {"vecs": self.pool.vecs, "counts": self.pool.counts}
+        sd["step"] = self.step
+        sd["gen"] = self.gen.get_state()
+        return sd
+
+    def load_state_dict(self, sd: dict) -> None:
+        for name, module, opt in self.trees():
+            module.load_state_dict(sd[name], strict=True)
+            opt.load_state_dict(sd[f"opt_{name}"])
+        self.pool = VectorPool(sd["pool"]["vecs"].to(self.device),
+                               sd["pool"]["counts"].to(self.device))
+        self.step = int(sd["step"])
+        if sd["gen"] is None:     # an exported JAX state: no torch stream
+            self.gen.manual_seed(self.cfg.train.seed)
+        else:
+            self.gen.set_state(sd["gen"])
 
 
 def build_modules(cfg: Config):

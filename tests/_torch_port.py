@@ -9,6 +9,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from scene_generation_tpu.config import Config as JaxConfig
@@ -104,3 +105,16 @@ def away_from_half(rng: np.random.RandomState, shape) -> np.ndarray:
     """Masks of 0.1 / 0.9 cells: the test-mode ``> 0.5`` claim is a step,
     so parity inputs keep their resampled values away from it."""
     return np.where(rng.rand(*shape) > 0.4, 0.9, 0.1).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module of many small CPU ops (the tiny
+    train CLI, checkpoints, the loader): as fast alone, and it does not
+    oversubscribe the cores that other test processes share."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)

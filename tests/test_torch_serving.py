@@ -139,7 +139,12 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'flax' or m.startswith('scene_generation_tpu.')\n"
         "       or m == 'scene_generation_tpu']\n"
-        "print(len(sys.modules)); assert not bad, bad\n")
+        "print(len(sys.modules)); assert not bad, bad\n"
+        "new = ['data.loader', 'metrics', 'models.inception', 'train',\n"
+        "       'trainer.checkpoint', 'trainer.evaluation', 'trainer.optim']\n"
+        "missing = [m for m in new\n"
+        "           if p.__name__ + '.' + m not in sys.modules]\n"
+        "assert not missing, missing\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code, REPO], cwd=REPO,
                           env=env, capture_output=True, text=True, timeout=300)

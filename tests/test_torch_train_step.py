@@ -14,7 +14,7 @@ Compared after the step:
 - every metric: 1e-4 relative (plus 1e-6 absolute), f32 sums of a few
   layers taken in another order;
 - the first moments of all four Adams, leaf by leaf: after one step
-  optax's ``mu`` and torch's ``exp_avg`` are both exactly 0.5 * grad, so
+  optax's ``mu`` and the port's ``mu`` are both exactly 0.5 * grad, so
   this compares the gradients (the parameters after one Adam step would
   compare only their signs). Per leaf, 1e-3 of that leaf's max |mu|,
   plus 1e-5 of the tree's max |mu| for leaves whose gradient vanishes in
@@ -184,7 +184,7 @@ def test_first_moments_of_all_four_optimizers_match_jax(stepped):
         tree_max = max(float(v.abs().max()) for v in tree.values())
         assert tree_max > 0
         for k, mu in tree.items():
-            got = opt.state[params[k]]["exp_avg"]
+            got = opt.state[params[k]]["mu"]
             tol = 1e-3 * float(mu.abs().max()) + 1e-5 * tree_max
             err = float((got - mu).abs().max())
             assert err <= tol, f"{name}.{k}: {err} > {tol}"
@@ -213,7 +213,7 @@ def test_every_parameter_tree_updates(stepped):
     _, pcfg, new, _, port, _ = stepped
     assert port.step == 1
     for name, module, opt in port.trees():
-        changed = [bool(opt.state[p]["exp_avg"].abs().max() > 0)
+        changed = [bool(opt.state[p]["mu"].abs().max() > 0)
                    for p in module.parameters()]
         assert sum(changed) / len(changed) > 0.9, name
 
@@ -259,23 +259,39 @@ def test_pool_at_capacity_no_write_collision():
 
 
 def test_storage_dtypes_are_not_ported_yet():
-    for name in ("adam_mu_dtype", "adam_nu_dtype", "grads_dtype"):
-        with pytest.raises(NotImplementedError, match=name):
-            check_storage_dtypes(TrainConfig(**{name: "bfloat16"}))
-    check_storage_dtypes(TrainConfig())
+    """The storage dtypes are ported now (``tests/test_torch_optim.py``
+    holds them against JAX): every flag value of the JAX CLI names a
+    dtype, and a name that is none raises."""
+    for name, values in (("adam_mu_dtype", ("", "bfloat16")),
+                         ("adam_nu_dtype", ("", "float16", "bfloat16")),
+                         ("grads_dtype", ("", "bfloat16"))):
+        for v in values:
+            got = check_storage_dtypes(TrainConfig(**{name: v}))[name]
+            assert got == (getattr(torch, v) if v else None)
+        with pytest.raises(ValueError, match="float64"):
+            check_storage_dtypes(TrainConfig(**{name: "float64"}))
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_train_cli_runs_on_the_cpu(capsys, compute_dtype):
+def test_train_cli_runs_on_the_cpu(capsys, tmp_path, compute_dtype):
     """The CLI at the tiny config; bf16 runs the generator under autocast
-    (the discriminators are bf16 by default either way)."""
-    assert train_main(["--synthetic", "--tiny", "--device", "cpu",
-                       "--num_iterations", "2", "--print_every", "1",
-                       "--compute_dtype", compute_dtype]) == 0
-    lines = [ln for ln in capsys.readouterr().out.splitlines()
-             if ln.startswith("step ")]
-    assert [ln.split()[1] for ln in lines] == ["1", "2"]
-    for ln in lines:
-        vals = dict(kv.split("=") for kv in ln.split()[2:])
+    (the discriminators are bf16 by default either way). It prints the
+    JAX CLI's lines: ``t = i / N (r it/s)`` and one ``[name]: value`` per
+    loss term."""
+    state, meta = train_main(["--synthetic", "--tiny", "--device", "cpu",
+                              "--num_iterations", "2", "--print_every", "1",
+                              "--output_dir", str(tmp_path),
+                              "--compute_dtype", compute_dtype])
+    assert state.step == 2 and meta["counters"]["t"] == 2
+    out = capsys.readouterr().out.splitlines()
+    heads = [i for i, ln in enumerate(out) if ln.startswith("t = ")]
+    assert [out[i].split()[2] for i in heads] == ["1", "2"]
+    for i in heads:
+        vals = {}
+        for ln in out[i + 1:]:
+            if not ln.startswith("  ["):
+                break
+            name, val = ln.strip()[1:].split("]: ")
+            vals[name] = float(val)
         assert "total_loss" in vals
-        assert all(np.isfinite(float(v)) for v in vals.values())
+        assert all(np.isfinite(v) for v in vals.values())
