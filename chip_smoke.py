@@ -6,8 +6,9 @@
 Builds the port's CUDA kernels from ``scene_generation_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the shapes of its path
 (the stem and the compositor at the serving shapes, the crop forward and
-backward at the train shapes, timed by CUDA events around a call and by
-the profiler's device time), checks that the forward-only kernels refuse
+backward at the train shapes and the crop forward at the accuracy net's
+224 px, timed by CUDA events around a call and by the profiler's device
+time), checks that the forward-only kernels refuse
 inputs that require grad, serves HTTP requests and a batch-16 forward
 through the default ``Config()`` (the factored stem, bf16: the
 tensor-core stem kernel), runs the dense-stem variant (the compositor
@@ -22,7 +23,10 @@ last the train CLI as a user runs it (``train.main``: 9 steps,
 checkpoints with the val sweeps, which run the f32 stem kernel, and best
 promotion, then a bitwise resume, a ``--preset quality`` run and
 serving its ``best/``; its checkpoints take about 5 GB of temporary
-disk). Every phase prints one
+disk), and the inference and evaluation tools on that ``best/``
+(``eval_phase``: encode_features, train_accuracy_net, sample_images,
+compute_fid, compute_diversity, the GUI server), each stage's kernel
+launches held to the counts the code predicts. Every phase prints one
 line; any failure raises and the exit code is non-zero. Without a CUDA
 device it exits non-zero before printing any result.
 
@@ -49,8 +53,8 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.parse
 import urllib.request
-import zlib
 from http.server import HTTPServer
 
 import numpy as np
@@ -59,9 +63,11 @@ import torch
 from scene_generation_tpu_torch import train as train_cli
 from scene_generation_tpu_torch.api import InferenceModel
 from scene_generation_tpu_torch.config import Config
-from scene_generation_tpu_torch.convert import save_checkpoint
+from scene_generation_tpu_torch.convert import (load_checkpoint,
+                                                save_checkpoint)
 from scene_generation_tpu_torch.data import (SyntheticDataset, synthetic_batch,
                                              synthetic_vocab)
+from scene_generation_tpu_torch.data.image_utils import decode_png
 from scene_generation_tpu_torch.data.loader import DataLoader
 from scene_generation_tpu_torch.entry import build_model, train_entry
 from scene_generation_tpu_torch.ops import _cuda
@@ -74,6 +80,10 @@ from scene_generation_tpu_torch.ops.sampling import (crop_matrices,
                                                       exact_f32_matmul)
 from scene_generation_tpu_torch.ops.stem import stem, stem_plain
 from scene_generation_tpu_torch.serve import Server, make_handler
+from scene_generation_tpu_torch.tools import (compute_diversity, compute_fid,
+                                              encode_features, gui_server,
+                                              sample_images,
+                                              train_accuracy_net)
 from scene_generation_tpu_torch.trainer import checkpoint as ckpt_mod
 from scene_generation_tpu_torch.trainer.step import Draws, draw, train_step
 from scene_generation_tpu_torch.trainer.train_state import create_train_state
@@ -342,11 +352,12 @@ def check_compositor(cfg: Config) -> dict:
     return rows
 
 
-def crop_case(cfg: Config, hh: int, dtype, seed=6):
-    """The crops' train shapes: 12 images of 128x128x3 in [-1, 1], the
-    synthetic batch's 9 boxes an image (slot 0 of image 0 made degenerate,
-    slots 1 and 2 of image 1 partly out of frame) and a random gradient."""
-    batch = synthetic_batch(cfg, seed=seed, batch_size=TRAIN_BATCH)
+def crop_case(cfg: Config, hh: int, dtype, seed=6, n=TRAIN_BATCH):
+    """The crops' train shapes: ``n`` (12) images of 128x128x3 in [-1, 1],
+    the synthetic batch's 9 boxes an image (slot 0 of image 0 made
+    degenerate, slots 1 and 2 of image 1 partly out of frame) and a random
+    gradient."""
+    batch = synthetic_batch(cfg, seed=seed, batch_size=n)
     boxes = batch.boxes.copy()
     boxes[0, 0] = [0.4, 0.4, 0.4, 0.7]
     boxes[1, 1] = [-0.2, 0.5, 0.3, 1.3]
@@ -354,8 +365,8 @@ def crop_case(cfg: Config, hh: int, dtype, seed=6):
     boxes = torch.from_numpy(boxes).cuda()
     h, w = cfg.model.image_size
     gen = torch.Generator().manual_seed(seed)
-    imgs = torch.rand((TRAIN_BATCH, h, w, 3), generator=gen) * 2 - 1
-    u = torch.randn((TRAIN_BATCH, boxes.shape[1], hh, hh, 3), generator=gen)
+    imgs = torch.rand((n, h, w, 3), generator=gen) * 2 - 1
+    u = torch.randn((n, boxes.shape[1], hh, hh, 3), generator=gen)
     ry, rx = crop_matrices(boxes.to(dtype), hh, hh, h, w)
     return (imgs.to("cuda", dtype), ry.contiguous(), rx.contiguous(),
             u.to("cuda", dtype), boxes)
@@ -558,7 +569,57 @@ def check_crop(cfg: Config) -> dict:
             for name in ("crop_fwd",) + tuple(r[0] for r in CROP_BWD_ROWS):
                 say(f"kernel {name}", hh=hh, dtype=str(dtype),
                     library=lib_note, **rows[(name,) + key])
+    check_crop_wide(cfg, rows)
     return rows
+
+
+ACC_CROP = 224       # the accuracy net's crops (sample_images, its trainer)
+ACC_BATCH = 8        # sample_images' default batch
+
+
+def check_crop_wide(cfg: Config, rows: dict) -> None:
+    """The crop forward at the accuracy net's 224 px crops of 8 images (9
+    boxes each, edge boxes as in ``crop_case``): hats (8, 9, 224, 128)
+    that upsample every box, so each crop row's span is 1-2 image rows.
+    f32 (as the accuracy path runs it: generated images are f32) and
+    bf16, against the plain version; the bound (bytes); ``F.grid_sample``
+    in f32. Forward only: nothing differentiates through these crops."""
+    for dtype in (torch.float32, torch.bfloat16):
+        imgs, ry, rx, u, boxes = crop_case(cfg, ACC_CROP, dtype, n=ACC_BATCH)
+        got = crop_fwd(imgs, ry, rx)
+        torch.cuda.synchronize()
+        want = crop_fwd_plain(imgs, ry, rx)
+        err = float((got.float() - want.float()).abs().max())
+        rel = 1e-5 if dtype == torch.float32 else 2 ** -7
+        tol = rel * float(want.float().abs().max())
+        check(bool(torch.isfinite(got.float()).all()) and err <= tol,
+              f"crop forward {dtype} HH={ACC_CROP}: max abs err {err} > "
+              f"{tol}")
+        check(torch.equal(got, crop_fwd(imgs, ry, rx)),
+              f"crop forward {dtype} HH={ACC_CROP} is not bitwise "
+              "repeatable")
+        b = bound(*crop_work(imgs, ry, rx, u, (got,)), dtype)
+        dense = bound(dense_crop_flops(imgs, ry, rx),
+                      nbytes(imgs, ry, rx, got), dtype)
+        lib, lib_note = None, "bf16 not timed"
+        if dtype == torch.float32:
+            call = crop_library_calls(imgs, boxes, u)["crop_fwd"]
+            n, h, w, c = imgs.shape
+            lf = call().reshape(n, -1, c, ACC_CROP, ACC_CROP).permute(
+                0, 1, 3, 4, 2)
+            lib_err = float((lf - want).abs().max())
+            agree = lib_err <= 1e-4 * float(want.abs().max())
+            lib_note = {"max_abs_err_fwd": lib_err, "agrees": agree}
+            if agree:
+                lib = cuda_ms(call)
+        rows[("crop_fwd", ACC_CROP, dtype)] = dict(
+            max_abs_err=err, tol=tol,
+            ms=cuda_ms(lambda: crop_fwd(imgs, ry, rx)),
+            plain_ms=cuda_ms(lambda: crop_fwd_plain(imgs, ry, rx)),
+            library_ms=lib, bound_ms=b[0], bound_by=b[1],
+            dense_bound_ms=dense[0], dense_bound_by=dense[1])
+        say("kernel crop_fwd", hh=ACC_CROP, dtype=str(dtype), n=ACC_BATCH,
+            library=lib_note, **rows[("crop_fwd", ACC_CROP, dtype)])
 
 
 def stem_device_times(cfg: Config, rows: dict) -> None:
@@ -602,6 +663,19 @@ def crop_device_times(cfg: Config, rows: dict) -> None:
                     device_ms=row["device_ms"], device_kernels=dev,
                     library_device_ms=row["library_device_ms"],
                     bound_ms=row["bound_ms"], clocks_sm=sm_clock())
+    for dtype in (torch.float32, torch.bfloat16):
+        imgs, ry, rx, u, boxes = crop_case(cfg, ACC_CROP, dtype, n=ACC_BATCH)
+        row = rows[("crop_fwd", ACC_CROP, dtype)]
+        dev = device_kernels_ms(lambda: crop_fwd(imgs, ry, rx))
+        lib = (device_kernels_ms(crop_library_calls(imgs, boxes, u)[
+            "crop_fwd"]) if row["library_ms"] is not None else None)
+        row.update(device_ms=device_total_ms(dev), device_kernels=dev,
+                   library_device_ms=None if lib is None
+                   else device_total_ms(lib))
+        say("kernel crop_fwd device", hh=ACC_CROP, dtype=str(dtype),
+            device_ms=row["device_ms"], device_kernels=dev,
+            library_device_ms=row["library_device_ms"],
+            bound_ms=row["bound_ms"], clocks_sm=sm_clock())
 
 
 def compositor_device_times(cfg: Config, rows: dict) -> None:
@@ -723,23 +797,10 @@ def spread_mask_head(model) -> float:
 
 
 def png_pixels(b64: str) -> np.ndarray:
-    """Decode an 8-bit RGB, filter-0 PNG as serve.py writes it."""
+    """A base64 PNG of the server's response as (H, W, 3) uint8."""
     raw = base64.b64decode(b64)
     check(raw[:8] == b"\x89PNG\r\n\x1a\n", "response image is not a PNG")
-    pos, idat, size = 8, b"", None
-    while pos < len(raw):
-        length = int.from_bytes(raw[pos:pos + 4], "big")
-        tag = raw[pos + 4:pos + 8]
-        data = raw[pos + 8:pos + 8 + length]
-        if tag == b"IHDR":
-            size = (int.from_bytes(data[4:8], "big"),
-                    int.from_bytes(data[0:4], "big"))
-        elif tag == b"IDAT":
-            idat += data
-        pos += 12 + length
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
-        size[0], 1 + size[1] * 3)
-    return rows[:, 1:].reshape(size[0], size[1], 3)
+    return decode_png(raw)
 
 
 def check_images(imgs: torch.Tensor, what: str) -> None:
@@ -1146,7 +1207,7 @@ def checkpoint_timers():
         cls.save, ckpt_mod._to_host, ckpt_mod._write_state = orig
 
 
-def train_cli_phase(step_ms: float) -> dict:
+def train_cli_phase(step_ms: float, tmp: str) -> dict:
     """Phase 10 (last): the port's train CLI as a user runs it
     (``train.main([...])``) at the full default ``Config()``, batch 12:
     CLI_STEPS steps over a CLI_SYNTHETIC-image synthetic set (an epoch
@@ -1156,8 +1217,8 @@ def train_cli_phase(step_ms: float) -> dict:
     the first batch the straight stream's next one), a 2-step
     ``--preset quality`` run (bf16 Adam mu) and
     ``InferenceModel.from_checkpoint(best=True)`` serving its best state
-    at b16 in bf16."""
-    tmp = tempfile.mkdtemp(prefix="sg_train_cli_")
+    at b16 in bf16. The runs write under ``tmp``; the last one's
+    ``best/`` stays there for the eval phase."""
     free_gib = shutil.disk_usage(tmp).free / 2 ** 30
     common = ["--synthetic", "--synthetic_size", str(CLI_SYNTHETIC),
               "--batch_size", str(TRAIN_BATCH), "--print_every", "1",
@@ -1170,132 +1231,129 @@ def train_cli_phase(step_ms: float) -> dict:
                                   for k, v in metrics.items()
                                   if not k.startswith("_")))
 
+    # 1. The straight run: checkpoints at t=3, 6 and 9.
+    _cuda.LAUNCHES.clear()
+    with checkpoint_timers() as times:
+        state, meta, log = _cli_main(
+            common + ["--num_iterations", str(CLI_STEPS),
+                      "--checkpoint_every", str(CLI_EVERY)], on_step)
+    launches = dict(_cuda.LAUNCHES)
+    check(len(losses_finite) == CLI_STEPS and all(losses_finite),
+          f"train CLI losses not finite at every step: {losses_finite}")
+    root = os.path.join(tmp, "checkpoint")
+    with open(os.path.join(root, "meta.json")) as f:
+        disk = json.load(f)
+    # The JAX CLI's count: steps 1-8 are epoch 1, step 9 epoch 2.
+    per_epoch = CLI_SYNTHETIC // TRAIN_BATCH
+    check(disk["counters"]["t"] == CLI_STEPS
+          and disk["counters"]["epoch"] == (CLI_STEPS - 1) // per_epoch
+          + 1, f"meta counters {disk['counters']}")
+    ts = list(range(CLI_EVERY, CLI_STEPS + 1, CLI_EVERY))
+    check(disk["checkpoint_ts"] == ts,
+          f"checkpoint_ts {disk['checkpoint_ts']}")
+    check(len(disk["best_t"]) > 0, "no best promotion")
+    ious = {k: disk[k] for k in ("val_gt_iou", "val_sg_iou")}
+    check(all(len(v) == len(ts) and all(np.isfinite(v))
+              for v in ious.values()), f"val IoUs {ious}")
+    for d in ("last", "best"):
+        check(os.path.exists(os.path.join(root, d, "state.pt")),
+              f"no {d}/state.pt")
+    check(launches.get("crop_fwd", 0) >= 4 * CLI_STEPS
+          and launches.get("crop_bwd", 0) >= CLI_STEPS,
+          f"crop kernels not launched on every step: {launches}")
+    f32_stem = launches.get("stem", 0) - launches.get("stem_tc", 0)
+    check(f32_stem > 0, f"the val sweeps ran no f32 stem: {launches}")
+    check(launches.get("crop_bwd_boxes", 0) == 0,
+          f"the train CLI launched the d_ry / d_rx kernels: {launches}")
+    timing = [float(ln.split()[1]) for ln in log.splitlines()
+              if ln.strip().startswith("[timing]")]
+    gib = os.path.getsize(os.path.join(root, "last", "state.pt")) / 2 ** 30
+    saved = ckpt_mod.tree_map(lambda t: t.detach().cpu().clone(),
+                              state.state_dict())
+    del state
+    torch.cuda.empty_cache()
+
+    # 2. The resume: t=9 restored bitwise, then t=10 and t=11.
+    restored, first = [], {}
+    orig_restore = ckpt_mod.CheckpointManager.restore
+
+    def restore(self, template, best=False):
+        out = orig_restore(self, template, best)
+        restored.append(ckpt_mod.tree_map(
+            lambda t: t.detach().cpu().clone(), out.state_dict()))
+        return out
+
+    def first_batch(t, batch, metrics):
+        first.setdefault(t, [torch.as_tensor(a).cpu().numpy()
+                             for a in batch])
+
+    ckpt_mod.CheckpointManager.restore = restore
     try:
-        # 1. The straight run: checkpoints at t=3, 6 and 9.
-        _cuda.LAUNCHES.clear()
-        with checkpoint_timers() as times:
-            state, meta, log = _cli_main(
-                common + ["--num_iterations", str(CLI_STEPS),
-                          "--checkpoint_every", str(CLI_EVERY)], on_step)
-        launches = dict(_cuda.LAUNCHES)
-        check(len(losses_finite) == CLI_STEPS and all(losses_finite),
-              f"train CLI losses not finite at every step: {losses_finite}")
-        root = os.path.join(tmp, "checkpoint")
-        with open(os.path.join(root, "meta.json")) as f:
-            disk = json.load(f)
-        # The JAX CLI's count: steps 1-8 are epoch 1, step 9 epoch 2.
-        per_epoch = CLI_SYNTHETIC // TRAIN_BATCH
-        check(disk["counters"]["t"] == CLI_STEPS
-              and disk["counters"]["epoch"] == (CLI_STEPS - 1) // per_epoch
-              + 1, f"meta counters {disk['counters']}")
-        ts = list(range(CLI_EVERY, CLI_STEPS + 1, CLI_EVERY))
-        check(disk["checkpoint_ts"] == ts,
-              f"checkpoint_ts {disk['checkpoint_ts']}")
-        check(len(disk["best_t"]) > 0, "no best promotion")
-        ious = {k: disk[k] for k in ("val_gt_iou", "val_sg_iou")}
-        check(all(len(v) == len(ts) and all(np.isfinite(v))
-                  for v in ious.values()), f"val IoUs {ious}")
-        for d in ("last", "best"):
-            check(os.path.exists(os.path.join(root, d, "state.pt")),
-                  f"no {d}/state.pt")
-        check(launches.get("crop_fwd", 0) >= 4 * CLI_STEPS
-              and launches.get("crop_bwd", 0) >= CLI_STEPS,
-              f"crop kernels not launched on every step: {launches}")
-        f32_stem = launches.get("stem", 0) - launches.get("stem_tc", 0)
-        check(f32_stem > 0, f"the val sweeps ran no f32 stem: {launches}")
-        check(launches.get("crop_bwd_boxes", 0) == 0,
-              f"the train CLI launched the d_ry / d_rx kernels: {launches}")
-        timing = [float(ln.split()[1]) for ln in log.splitlines()
-                  if ln.strip().startswith("[timing]")]
-        gib = os.path.getsize(os.path.join(root, "last", "state.pt")) / 2 ** 30
-        saved = ckpt_mod.tree_map(lambda t: t.detach().cpu().clone(),
-                                  state.state_dict())
-        del state
-        torch.cuda.empty_cache()
-
-        # 2. The resume: t=9 restored bitwise, then t=10 and t=11.
-        restored, first = [], {}
-        orig_restore = ckpt_mod.CheckpointManager.restore
-
-        def restore(self, template, best=False):
-            out = orig_restore(self, template, best)
-            restored.append(ckpt_mod.tree_map(
-                lambda t: t.detach().cpu().clone(), out.state_dict()))
-            return out
-
-        def first_batch(t, batch, metrics):
-            first.setdefault(t, [torch.as_tensor(a).cpu().numpy()
-                                 for a in batch])
-
-        ckpt_mod.CheckpointManager.restore = restore
-        try:
-            state, meta2, log2 = _cli_main(
-                common + ["--num_iterations", str(CLI_STEPS + 2),
-                          "--checkpoint_every", str(CLI_EVERY),
-                          "--restore_from_checkpoint", "1"], first_batch)
-        finally:
-            ckpt_mod.CheckpointManager.restore = orig_restore
-        check(f"restored checkpoint at t={CLI_STEPS}" in log2,
-              f"the resume did not report t={CLI_STEPS}")
-        check(meta2["counters"]["t"] == CLI_STEPS + 2,
-              f"resumed counters {meta2['counters']}")
-        leaves = list(ckpt_mod.tree_leaves(saved))
-        got = list(ckpt_mod.tree_leaves(restored[0]))
-        check([p for p, _ in leaves] == [p for p, _ in got],
-              "restored state has other leaves than the saved one")
-        differ = [p for (p, a), (_, b) in zip(leaves, got)
-                  if not (torch.equal(a, b) and a.dtype == b.dtype
-                          if isinstance(a, torch.Tensor) else a == b)]
-        check(not differ, f"restored leaves differ from the saved: "
-              f"{differ[:5]}")
-        # The straight stream's next batch (t=10: epoch 2, its second).
-        cfg = train_cli.config_from_args(train_cli.parse_args(common))
-        loader = DataLoader(SyntheticDataset(cfg, CLI_SYNTHETIC, SEED),
-                            TRAIN_BATCH, cfg.data.max_objs,
-                            cfg.data.max_triples, shuffle=True, seed=SEED)
-        loader.set_epoch(CLI_STEPS // per_epoch + 1)
-        want = list(loader)[CLI_STEPS % per_epoch]
-        check(CLI_STEPS + 1 in first and all(
-            np.array_equal(a, b) for a, b in zip(first[CLI_STEPS + 1], want)),
-            f"the resumed run's first batch is not the straight run's "
-            f"t={CLI_STEPS + 1}")
-        del state, saved, restored
-        torch.cuda.empty_cache()
-
-        # 3. --preset quality: bf16 Adam mu, finite losses; its best/
-        # (bf16 config) served at b16.
-        losses_finite.clear()
-        state, meta3, _ = _cli_main(
-            common + ["--preset", "quality", "--num_iterations", "2",
-                      "--checkpoint_every", "2"], on_step)
-        mu_dtypes = {name: sorted({str(m.dtype) for m in
-                                   opt.state_dict()["mu"]})
-                     for name, _, opt in state.trees()}
-        check(all(v == ["torch.bfloat16"] for v in mu_dtypes.values()),
-              f"--preset quality mu dtypes {mu_dtypes}")
-        check(len(losses_finite) == 2 and all(losses_finite),
-              f"--preset quality losses not finite: {losses_finite}")
-        del state
-        torch.cuda.empty_cache()
-        served = InferenceModel.from_checkpoint(tmp, best=True,
-                                                device="cuda")
-        batch = synthetic_batch(served.cfg, seed=4, batch_size=BATCH)
-        n, o = batch.objs.shape
-        _cuda.LAUNCHES.clear()
-        out = served.forward_batch(
-            batch, features=np.zeros((n, o, served.cfg.model.rep_size),
-                                     np.float32),
-            features_mask=np.zeros((n, o), np.float32))
-        torch.cuda.synchronize()
-        serve_launches = dict(_cuda.LAUNCHES)
-        check(tuple(out.imgs_pred.shape) == (BATCH, 128, 128, 3)
-              and bool(torch.isfinite(out.imgs_pred).all()),
-              "serving best/ gave no finite b16 images")
-        check(serve_launches.get("stem_tc", 0) > 0,
-              f"serving best/ ran no tensor-core stem: {serve_launches}")
-        del served, out
+        state, meta2, log2 = _cli_main(
+            common + ["--num_iterations", str(CLI_STEPS + 2),
+                      "--checkpoint_every", str(CLI_EVERY),
+                      "--restore_from_checkpoint", "1"], first_batch)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        ckpt_mod.CheckpointManager.restore = orig_restore
+    check(f"restored checkpoint at t={CLI_STEPS}" in log2,
+          f"the resume did not report t={CLI_STEPS}")
+    check(meta2["counters"]["t"] == CLI_STEPS + 2,
+          f"resumed counters {meta2['counters']}")
+    leaves = list(ckpt_mod.tree_leaves(saved))
+    got = list(ckpt_mod.tree_leaves(restored[0]))
+    check([p for p, _ in leaves] == [p for p, _ in got],
+          "restored state has other leaves than the saved one")
+    differ = [p for (p, a), (_, b) in zip(leaves, got)
+              if not (torch.equal(a, b) and a.dtype == b.dtype
+                      if isinstance(a, torch.Tensor) else a == b)]
+    check(not differ, f"restored leaves differ from the saved: "
+          f"{differ[:5]}")
+    # The straight stream's next batch (t=10: epoch 2, its second).
+    cfg = train_cli.config_from_args(train_cli.parse_args(common))
+    loader = DataLoader(SyntheticDataset(cfg, CLI_SYNTHETIC, SEED),
+                        TRAIN_BATCH, cfg.data.max_objs,
+                        cfg.data.max_triples, shuffle=True, seed=SEED)
+    loader.set_epoch(CLI_STEPS // per_epoch + 1)
+    want = list(loader)[CLI_STEPS % per_epoch]
+    check(CLI_STEPS + 1 in first and all(
+        np.array_equal(a, b) for a, b in zip(first[CLI_STEPS + 1], want)),
+        f"the resumed run's first batch is not the straight run's "
+        f"t={CLI_STEPS + 1}")
+    del state, saved, restored
+    torch.cuda.empty_cache()
+
+    # 3. --preset quality: bf16 Adam mu, finite losses; its best/
+    # (bf16 config) served at b16.
+    losses_finite.clear()
+    state, meta3, _ = _cli_main(
+        common + ["--preset", "quality", "--num_iterations", "2",
+                  "--checkpoint_every", "2"], on_step)
+    mu_dtypes = {name: sorted({str(m.dtype) for m in
+                               opt.state_dict()["mu"]})
+                 for name, _, opt in state.trees()}
+    check(all(v == ["torch.bfloat16"] for v in mu_dtypes.values()),
+          f"--preset quality mu dtypes {mu_dtypes}")
+    check(len(losses_finite) == 2 and all(losses_finite),
+          f"--preset quality losses not finite: {losses_finite}")
+    del state
+    torch.cuda.empty_cache()
+    served = InferenceModel.from_checkpoint(tmp, best=True,
+                                            device="cuda")
+    batch = synthetic_batch(served.cfg, seed=4, batch_size=BATCH)
+    n, o = batch.objs.shape
+    _cuda.LAUNCHES.clear()
+    out = served.forward_batch(
+        batch, features=np.zeros((n, o, served.cfg.model.rep_size),
+                                 np.float32),
+        features_mask=np.zeros((n, o), np.float32))
+    torch.cuda.synchronize()
+    serve_launches = dict(_cuda.LAUNCHES)
+    check(tuple(out.imgs_pred.shape) == (BATCH, 128, 128, 3)
+          and bool(torch.isfinite(out.imgs_pred).all()),
+          "serving best/ gave no finite b16 images")
+    check(serve_launches.get("stem_tc", 0) > 0,
+          f"serving best/ ran no tensor-core stem: {serve_launches}")
+    del served, out
     result = dict(
         steps=CLI_STEPS, launches=launches, f32_stem_launches=f32_stem,
         checkpoint_gib=gib, free_disk_gib_before=free_gib,
@@ -1307,6 +1365,188 @@ def train_cli_phase(step_ms: float) -> dict:
         serve_best_launches=serve_launches)
     say("train CLI", **result)
     return result
+
+
+EVAL_ENCODE = 96      # encode_features: images, at batch ACC_BATCH
+EVAL_ACC_SYNTHETIC = 24  # train_accuracy_net: 3 steps at batch ACC_BATCH
+EVAL_SAMPLES = 16     # sample_images
+EVAL_PAIRS = 8        # compute_diversity
+
+
+def _stage(name: str, stages: dict, predicted: dict, fn):
+    """Run one eval stage with the launch counts set to 0 just before it;
+    record its wall seconds and launches beside the predicted counts, and
+    fail if they differ."""
+    _cuda.LAUNCHES.clear()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    stages[name] = dict(seconds=time.perf_counter() - t, launches=launches,
+                        predicted=predicted)
+    say(f"eval {name}", **stages[name])
+    check(launches == predicted, f"eval {name}: launches {launches}, "
+          f"predicted {predicted}")
+    return out
+
+
+def _encode_on(device: str, run_dir: str):
+    """encode_features' ``encode`` of the EVAL_ENCODE images with the
+    model in f32 on ``device``."""
+    model = InferenceModel.from_checkpoint(run_dir, device=device)
+    model.model.float()
+    loader = DataLoader(SyntheticDataset(model.cfg, EVAL_ENCODE, SEED),
+                        ACC_BATCH, model.cfg.data.max_objs,
+                        model.cfg.data.max_triples, shuffle=False,
+                        drop_last=False)
+    return encode_features.encode(model, loader)
+
+
+def eval_phase(train_dir: str) -> dict:
+    """Phase 11 (last): the inference and evaluation tools, in-process on
+    the card, on the ``best/`` of the train CLI phase's ``--preset
+    quality`` run (the full default Config() in bf16), its mask head
+    rescaled as for serving (``spread_mask_head``: two steps from a seeded
+    init leave bf16 masks at 0.5):
+    encode_features over EVAL_ENCODE synthetic images at batch 8 with the
+    clustering on the card, its f32 encoding held against the CPU's;
+    train_accuracy_net, 3 steps of ResNet101 at 224 px; sample_images with
+    the k=1 table and the accuracy net; compute_fid over its gt and pred
+    PNGs (read back by ``decode_png``); compute_diversity over EVAL_PAIRS
+    pairs; the GUI server's ``GET /`` and one ``GET /get_data`` scene.
+    Each stage's launches are held to the counts the code predicts."""
+    work = tempfile.mkdtemp(prefix="sg_eval_")
+    try:
+        run = os.path.join(work, "run")
+        cfg, vocab, model = load_checkpoint(train_dir, "cuda", best=True)
+        spread = spread_mask_head(model)
+        save_checkpoint(run, model, cfg, vocab)
+        del model
+        torch.cuda.empty_cache()
+        stages = {}
+        batches = -(-EVAL_ENCODE // ACC_BATCH)
+        feats = _stage("encode_features", stages, {"crop_fwd": batches},
+                       lambda: encode_features.main([
+                           "--output_dir", run, "--synthetic",
+                           "--num_samples", str(EVAL_ENCODE),
+                           "--batch_size", str(ACC_BATCH),
+                           "--save_dir", work]))
+        # The f32 encoding on the card against the CPU's, within 1e-3 of
+        # each class's scale; the bf16 run's distance from it is printed.
+        card, cpu = _encode_on("cuda", run), _encode_on("cpu", run)
+        check(sorted(card) == sorted(cpu) == sorted(feats),
+              "encode_features: classes differ between card and CPU")
+        f32_err = max(float(np.abs(card[c] - cpu[c]).max())
+                      / max(float(np.abs(cpu[c]).max()), 1e-12) for c in cpu)
+        bf16_err = max(float(np.abs(feats[c] - cpu[c]).max())
+                       / max(float(np.abs(cpu[c]).max()), 1e-12) for c in cpu)
+        tables = {k: np.load(os.path.join(work, f"features_clustered_{k}"
+                                          ".npy"), allow_pickle=True).item()
+                  for k in ("100", "010", "001")}
+        # The k=1 centres (k-means on the card) against the numpy means of
+        # the features they clustered.
+        mean_err = max(float(np.abs(tables["001"][c][0] - feats[c].mean(0))
+                             .max()) / max(float(np.abs(feats[c]).max()),
+                                           1e-12) for c in feats)
+        say("eval encode_features check", classes=len(cpu),
+            objects=sum(len(v) for v in cpu.values()), f32_rel_err=f32_err,
+            bf16_rel_err=bf16_err, k1_mean_rel_err=mean_err,
+            mask_logit_spread_before=spread,
+            k100_centres=sum(len(v) for v in tables["100"].values()))
+        check(f32_err <= 1e-3, f"encode_features f32 card vs CPU: {f32_err} "
+              "of a class's scale > 1e-3")
+        check(mean_err <= 1e-5, f"the k=1 table is {mean_err} of a class's "
+              "scale from the class means")
+
+        acc = os.path.join(work, "accuracy_net.pt")
+        _stage("train_accuracy_net", stages,
+               {"crop_fwd": EVAL_ACC_SYNTHETIC // ACC_BATCH},
+               lambda: train_accuracy_net.main([
+                   "--synthetic", "--synthetic_size", str(EVAL_ACC_SYNTHETIC),
+                   "--batch_size", str(ACC_BATCH), "--save_path", acc]))
+        samples = os.path.join(work, "samples")
+        n_batches = EVAL_SAMPLES // ACC_BATCH
+        results = _stage(
+            "sample_images", stages,
+            {"stem": n_batches, "stem_tc": n_batches, "crop_fwd": n_batches},
+            lambda: sample_images.main([
+                "--output_dir", run, "--features_path",
+                os.path.join(work, "features_clustered_001.npy"),
+                "--synthetic", "--num_samples", str(EVAL_SAMPLES),
+                "--batch_size", str(ACC_BATCH), "--accuracy_model_path", acc,
+                "--save_dir", samples]))
+        check(results["num_images"] == EVAL_SAMPLES
+              and all(np.isfinite(list(results.values()))),
+              f"sample_images results {results}")
+        dirs = {}
+        for kind in ("gt", "pred"):
+            dirs[kind] = os.path.join(work, f"fid_{kind}")
+            os.makedirs(dirs[kind])
+            for f in sorted(os.listdir(samples)):
+                if f.endswith(f"_{kind}.png"):
+                    shutil.copy(os.path.join(samples, f), dirs[kind])
+        fid = _stage("compute_fid", stages, {}, lambda: compute_fid.main([
+            "--real_dir", dirs["gt"], "--fake_dir", dirs["pred"]]))
+        check(fid["n_real"] == fid["n_fake"] == EVAL_SAMPLES
+              and np.isfinite(fid["fid"]), f"compute_fid {fid}")
+        div = _stage("compute_diversity", stages,
+                     {"stem": 2 * (EVAL_PAIRS // ACC_BATCH),
+                      "stem_tc": 2 * (EVAL_PAIRS // ACC_BATCH)},
+                     lambda: compute_diversity.main([
+                         "--output_dir", run, "--features_path",
+                         os.path.join(work, "features_clustered_100.npy"),
+                         "--synthetic", "--num_samples", str(EVAL_PAIRS),
+                         "--batch_size", str(ACC_BATCH)]))
+        check(div["n"] == EVAL_PAIRS and np.isfinite(
+            div["diversity_lpips_mean"]), f"compute_diversity {div}")
+        gui = _stage("gui_server", stages, {"stem": 1, "stem_tc": 1},
+                     lambda: gui_request(run, work))
+        say("eval", results=results, fid=fid, diversity=div, gui=gui)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return stages
+
+
+def gui_request(run: str, work: str) -> dict:
+    """The GUI server over HTTP: ``GET /`` is the repo's index.html; one
+    ``GET /get_data`` scene (batch 1, bf16: the tensor-core stem) gives a
+    PNG that decodes to a non-constant image of the model's size."""
+    backend = gui_server.GuiBackend(
+        run, features_path=os.path.join(work, "features_clustered_100.npy"),
+        images_dir=os.path.join(work, "gui"), device="cuda")
+    httpd = HTTPServer(("127.0.0.1", 0), gui_server.make_handler(backend))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        index = urllib.request.urlopen(base + "/", timeout=60).read()
+        with open(os.path.join(gui_server.GUI_DIR, "index.html"), "rb") as f:
+            check(index == f.read(), "GET / is not scripts/gui/index.html")
+        names = backend.model.vocab["object_idx_to_name"]
+        scene = {"image_id": 1, "objects": [
+            {"text": names[4], "left": 0.1, "top": 0.2, "width": 0.4,
+             "height": 0.5, "size": 5, "location": 7, "feature": 0},
+            {"text": names[2], "left": 0.5, "top": 0.4, "width": 0.45,
+             "height": 0.5, "size": 6, "location": 18, "feature": -1},
+            {"text": names[5], "left": 0.0, "top": 0.0, "width": 1.0,
+             "height": 0.4, "size": 9, "location": 2, "feature": -1}]}
+        resp = json.loads(urllib.request.urlopen(
+            base + "/get_data?data=" + urllib.parse.quote(json.dumps(scene)),
+            timeout=300).read())
+        img = decode_png(urllib.request.urlopen(
+            base + "/" + resp["img_pred"], timeout=60).read())
+        layout = decode_png(urllib.request.urlopen(
+            base + "/" + resp["img_layout"], timeout=60).read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "the GUI server did not stop")
+    h, w = backend.model.cfg.model.image_size
+    check(img.shape == (h, w, 3) and int(img.max()) > int(img.min()),
+          f"GUI image of {img.shape}: constant or not {h}x{w}")
+    return dict(img_std=float(img.std()), layout=list(layout.shape),
+                paths=resp)
 
 
 def train_card_vs_cpu() -> None:
@@ -1486,9 +1726,19 @@ def main(argv=None) -> int:
     train_card_vs_cpu()
     generator_f64()
     fresh_device_times(stem_rows, comp_rows, crop_rows)
-    # Last: this slice's path, after every timing of the kernels.
-    with torch_default_tf32():
-        cli = train_cli_phase(train["ms_per_step"])
+    # Last: the train CLI and the eval tools on its best/, after every
+    # timing of the kernels.
+    train_dir = tempfile.mkdtemp(prefix="sg_train_cli_")
+    try:
+        with torch_default_tf32():
+            cli = train_cli_phase(train["ms_per_step"], train_dir)
+        t = time.perf_counter()
+        evals = eval_phase(train_dir)
+        eval_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
+    acc_launches = sum(evals[k]["launches"].get("crop_fwd", 0)
+                       for k in ("train_accuracy_net", "sample_images"))
 
     # Each kernel's launches in the train CLI phase (the stem's: the f32
     # kernel of the val sweeps), beside the main path's count.
@@ -1520,6 +1770,12 @@ def main(argv=None) -> int:
             "scene_generation_tpu/ops/pallas/crop.py:88",
             train["launches"]["crop_fwd"],
             crop_rows[("crop_fwd", 32, torch.float32)]),
+        # The accuracy net's 224 px crops (f32, 8 images): launches in the
+        # eval phase (train_accuracy_net and sample_images).
+        dict(row("crop_fwd_224px", "scene_generation_tpu_torch/csrc/crop.cu",
+                 "scene_generation_tpu/ops/pallas/crop.py:88", acc_launches,
+                 crop_rows[("crop_fwd", ACC_CROP, torch.float32)]),
+             eval_launches=acc_launches),
         row("crop_bwd", "scene_generation_tpu_torch/csrc/crop.cu",
             "scene_generation_tpu/ops/pallas/crop.py:126",
             train["launches"]["crop_bwd"],
@@ -1534,7 +1790,8 @@ def main(argv=None) -> int:
     say("done", seconds=time.perf_counter() - t0,
         img_per_s={k: v["img_per_s"] for k, v in rates.items()},
         train_ms_per_step=train["ms_per_step"],
-        train_cli_ms_per_step=cli["timing_ms_per_step"])
+        train_cli_ms_per_step=cli["timing_ms_per_step"], eval_seconds=eval_s,
+        eval_stage_seconds={k: v["seconds"] for k, v in evals.items()})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

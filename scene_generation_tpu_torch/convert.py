@@ -7,7 +7,10 @@ state_dict; its siblings do the same for the rest of the JAX train state
 (``d_img_state_dict_from_jax``, ``d_obj_state_dict_from_jax``,
 ``d_mask_state_dict_from_jax``, ``vgg_state_dict_from_jax``,
 ``pool_from_jax``), so that both packages can step from one state, and
-``inception_state_dict_from_jax`` maps the evaluation's InceptionV3. Every
+``inception_state_dict_from_jax`` maps the evaluation's InceptionV3,
+``resnet_state_dict_from_jax`` the accuracy net, ``lpips_state_dict_from_jax``
+the diversity metric's VGG16 and lin layers and ``shallow_kernels_from_jax``
+the FID fallback's kernels. Every
 map is linear in the leaves, so it carries an optimizer's moment trees
 (which have the parameters' structure) across as well:
 
@@ -308,6 +311,73 @@ def inception_state_dict_from_jax(variables: Mapping[str, Any]
             sd[f"{name}.bias"] = _t(v.take(key))
     v.finish()
     return sd
+
+
+def resnet_state_dict_from_jax(variables: Mapping[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """The JAX package's flax ``ResNet`` variables (the accuracy net:
+    params + batch_stats) -> the port's ``models.resnet.ResNet``, whose
+    names are torchvision's: ``layer{s}_{b}`` -> ``layer{s}.{b}``,
+    ``downsample_conv`` / ``downsample_bn`` -> ``downsample.0`` / ``.1``,
+    BN ``scale`` / ``mean`` / ``var`` -> ``weight`` / ``running_mean`` /
+    ``running_var``."""
+    v = _collect(variables)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def name(path) -> str:
+        out = []
+        for part in path:
+            if part.startswith("layer") and "_" in part:
+                out += part.split("_")
+            elif part in ("downsample_conv", "downsample_bn"):
+                out += ["downsample", "0" if part.endswith("conv") else "1"]
+            else:
+                out.append(part)
+        return ".".join(out)
+
+    for key in sorted(k for k in v._flat if k.startswith("params/")):
+        path = key.split("/")[1:]
+        mod, leaf = name(path[:-1]), path[-1]
+        if path[:-1] == ["fc"]:
+            sd[f"fc.{'weight' if leaf == 'kernel' else 'bias'}"] = _t(
+                v.take(key).T if leaf == "kernel" else v.take(key))
+        elif leaf == "kernel":
+            sd[f"{mod}.weight"] = _t(v.take(key).transpose(3, 2, 0, 1))
+        elif leaf == "scale":
+            base = "/".join(path[:-1])
+            sd[f"{mod}.weight"] = _t(v.take(key))
+            sd[f"{mod}.running_mean"] = _t(v.take(f"batch_stats/{base}/mean"))
+            sd[f"{mod}.running_var"] = _t(v.take(f"batch_stats/{base}/var"))
+            sd[f"{mod}.num_batches_tracked"] = torch.tensor(0)
+        else:
+            sd[f"{mod}.bias"] = _t(v.take(key))
+    v.finish()
+    return sd
+
+
+def lpips_state_dict_from_jax(params: Mapping[str, Any],
+                              lins: Sequence[np.ndarray]
+                              ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``Vgg16Features`` params (``conv0`` ... ``conv12``)
+    and its five LPIPS lin weight vectors -> the port's
+    ``metrics_lpips.LPIPS``."""
+    v = _collect({"params": params})
+    sd: Dict[str, torch.Tensor] = {}
+    for name in params:
+        _conv(v, name, f"vgg.{name}", sd)
+    v.finish()
+    if len(lins) != 5:
+        raise ValueError(f"LPIPS has 5 lin layers, got {len(lins)}")
+    for i, w in enumerate(lins):
+        sd[f"lin{i}"] = _t(np.asarray(w).reshape(-1))
+    return sd
+
+
+def shallow_kernels_from_jax(kernels: Sequence[Any]) -> list:
+    """The JAX package's shallow FID extractor's four HWIO conv kernels
+    (``metrics_fid.create_shallow_features_fn``) -> OIHW tensors for the
+    port's ``metrics_fid.create_shallow_features_fn(kernels=)``."""
+    return [_t(np.asarray(k).transpose(3, 2, 0, 1)) for k in kernels]
 
 
 def pool_from_jax(pool: Any, device=None) -> VectorPool:

@@ -1,8 +1,10 @@
 """Host-side image utilities in numpy and the standard library.
 
 ``deprocess`` is a copy of the JAX package's ``data/image_utils.py``
-function. ``draw_layout`` and ``encode_png`` replace its matplotlib and PIL
-calls, so that the serving path needs neither.
+function. ``encode_png`` and ``decode_png`` replace the PIL calls of the
+JAX package's serving and evaluation scripts (``PIL.Image.save`` /
+``PIL.Image.open``), so that neither path needs PIL; ``vis.py`` replaces
+matplotlib.
 """
 from __future__ import annotations
 
@@ -34,53 +36,6 @@ def deprocess(img: np.ndarray, rescale: bool = True) -> np.ndarray:
     return (arr * 255).astype(np.uint8)
 
 
-def rainbow(x: np.ndarray) -> np.ndarray:
-    """matplotlib's 'rainbow' colormap: (K,) in [0, 1] -> (K, 3) RGB."""
-    x = np.asarray(x, np.float64)
-    rgb = np.stack([np.abs(2 * x - 0.5), np.sin(np.pi * x),
-                    np.cos(np.pi * x / 2)], axis=-1)
-    return np.clip(rgb, 0.0, 1.0)
-
-
-def _resize_nearest(m: np.ndarray, h: int, w: int) -> np.ndarray:
-    mh, mw = m.shape
-    yy = np.minimum(np.arange(h) * mh // h, mh - 1)
-    xx = np.minimum(np.arange(w) * mw // w, mw - 1)
-    return m[np.ix_(yy, xx)]
-
-
-def draw_layout(vocab, objs, boxes, masks=None, size: int = 256,
-                bgcolor=(0, 0, 0)) -> np.ndarray:
-    """Render object masks into an RGB uint8 canvas.
-
-    The JAX package's ``vis.draw_layout`` with the same colors and box
-    rounding; the mask is resized to its box by nearest neighbour instead
-    of PIL's filter.
-    """
-    colors = rainbow(np.linspace(0, 1, len(objs)))
-    canvas = np.zeros((size, size, 3), np.float32)
-    canvas[:] = np.asarray(bgcolor, np.float32).reshape(1, 1, 3)
-    names = vocab.get("my_idx_to_obj") or []
-    for i, obj in enumerate(objs):
-        if int(obj) < len(names) and names[int(obj)] == "__image__":
-            continue
-        x0, y0, x1, y1 = np.clip(np.asarray(boxes[i], np.float64), 0, 1)
-        px0, py0 = int(x0 * size), int(y0 * size)
-        px1 = min(max(int(x1 * size), px0 + 1), size)
-        py1 = min(max(int(y1 * size), py0 + 1), size)
-        if px0 >= size or py0 >= size:
-            continue
-        color = colors[i].astype(np.float32)
-        if masks is None:
-            canvas[py0:py1, px0:px1] = color
-            continue
-        m = _resize_nearest(np.asarray(masks[i], np.float32),
-                            py1 - py0, px1 - px0)[..., None]
-        region = canvas[py0:py1, px0:px1]
-        canvas[py0:py1, px0:px1] = region * (1 - m) + m * color
-    return (np.clip(canvas, 0, 1) * 255).astype(np.uint8)
-
-
 def encode_png(img: np.ndarray) -> bytes:
     """(H, W, 3) uint8 -> PNG bytes (8-bit RGB, no interlace)."""
     img = np.ascontiguousarray(img, np.uint8)
@@ -100,16 +55,97 @@ def encode_png(img: np.ndarray) -> bytes:
             + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
-def one_hot_to_rgb_compact(layout_one_hot) -> np.ndarray:
-    """Layout channels (NHWC) -> random-colour RGB uint8 (a copy of the JAX
-    package's ``vis.one_hot_to_rgb_compact``; reference trainer.py:394-397):
-    the seed-0 palette contraction is done where the layout lies, so only
-    the (N, H, W, 3) projection leaves the card."""
-    import torch
-    x = torch.as_tensor(layout_one_hot).float()
-    colors = np.random.RandomState(0).randint(
-        0, 256, (x.shape[-1], 3)).astype(np.float32)
-    rgb = torch.einsum("nhwc,cd->nhwd", x,
-                       torch.from_numpy(colors).to(x.device)).cpu().numpy()
-    maxv = rgb.max() or 1.0
-    return (rgb * (255.0 / maxv)).astype(np.uint8)
+# Channels of each 8-bit PNG colour type decode_png reads: grey, RGB,
+# grey + alpha, RGBA.
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(kind: int, row: np.ndarray, prev: np.ndarray,
+              bpp: int) -> np.ndarray:
+    """One scanline (int32, filter byte removed) given the previous
+    reconstructed one: the five PNG filter types (PNG spec §9.2)."""
+    if kind == 0:
+        return row
+    if kind == 1:          # Sub: a running sum per channel, mod 256
+        return np.cumsum(row.reshape(-1, bpp), axis=0).reshape(-1) & 255
+    if kind == 2:          # Up
+        return (row + prev) & 255
+    if kind not in (3, 4):
+        raise ValueError(f"PNG filter type {kind} does not exist")
+    # Average and Paeth read the reconstructed pixel to the left: one
+    # pixel (bpp bytes) at a time.
+    out = np.empty_like(row)
+    left = np.zeros(bpp, row.dtype)
+    up_left = np.zeros(bpp, row.dtype)
+    for x in range(0, row.size, bpp):
+        up = prev[x:x + bpp]
+        pred = (left + up) >> 1 if kind == 3 else _paeth(left, up, up_left)
+        left = (row[x:x + bpp] + pred) & 255
+        out[x:x + bpp] = left
+        up_left = up
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, C) uint8: 8-bit grey (C=1), RGB (3), grey with
+    alpha (2) or RGBA (4), not interlaced, any of the five row filters;
+    the standard library's ``zlib`` inflates. Other PNGs raise."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        length, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or color not in _PNG_CHANNELS or interlace:
+        raise ValueError(f"decode_png reads 8-bit grey, RGB, grey+alpha or "
+                         f"RGBA without interlace; this file has bit depth "
+                         f"{depth}, colour type {color}, interlace "
+                         f"{interlace}")
+    bpp = _PNG_CHANNELS[color]
+    stride = w * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (stride + 1):
+        raise ValueError(f"PNG data of {raw.size} bytes for {h} rows of "
+                         f"{stride + 1}")
+    rows = raw.reshape(h, stride + 1).astype(np.int32)
+    out = np.empty((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        prev = _unfilter(int(rows[y, 0]), rows[y, 1:], prev, bpp)
+        out[y] = prev
+    return out.reshape(h, w, bpp)
+
+
+def to_rgb(img: np.ndarray) -> np.ndarray:
+    """(H, W, C) uint8 from ``decode_png`` -> (H, W, 3): grey repeated,
+    alpha dropped (``PIL.Image.convert("RGB")``)."""
+    if img.shape[-1] in (1, 2):
+        return np.repeat(img[..., :1], 3, axis=-1)
+    return img[..., :3]
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+def read_png(path: str) -> np.ndarray:
+    """A PNG file as (H, W, 3) uint8 RGB."""
+    with open(path, "rb") as f:
+        return to_rgb(decode_png(f.read()))

@@ -228,3 +228,22 @@ def create_inception_probs_fn(device=None) -> Tuple[Callable, bool]:
         return torch.softmax(model(x), dim=-1)
 
     return probs_fn, loaded
+
+
+def create_inception_features_fn(device=None) -> Tuple[Callable, bool]:
+    """-> (features_fn(imgs [-1, 1] NHWC) -> (N, 2048) pool3 features,
+    loaded): the FID feature extractor, built as ``create_inception_probs_fn``
+    builds its network."""
+    dev = resolve_device(device)
+    with torch.random.fork_rng(devices=[]):    # the global RNG untouched
+        torch.manual_seed(0)
+        model = InceptionV3()
+    loaded = load_torch_inception(model)
+    model = model.to(dev).eval()
+
+    @torch.no_grad()
+    def features_fn(imgs) -> torch.Tensor:
+        x = resize_bilinear(torch.as_tensor(imgs).to(dev, torch.float32))
+        return model(x, return_features=True)[1]
+
+    return features_fn, loaded

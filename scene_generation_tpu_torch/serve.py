@@ -27,9 +27,8 @@ from typing import Optional
 import numpy as np
 
 from scene_generation_tpu_torch.api import InferenceModel
-from scene_generation_tpu_torch.data.image_utils import (deprocess,
-                                                         draw_layout,
-                                                         encode_png)
+from scene_generation_tpu_torch.data.image_utils import deprocess, encode_png
+from scene_generation_tpu_torch.vis import draw_layout
 
 
 def _png_b64(arr_uint8: np.ndarray) -> str:

@@ -256,8 +256,8 @@ def _scalars(metrics) -> dict:
 
 def _write_images(writer, batch, metrics, cfg: Config, index: int) -> None:
     """Image panels (reference write_images, trainer.py:370-392), CHW."""
-    from scene_generation_tpu_torch.data.image_utils import (
-        deprocess, one_hot_to_rgb_compact)
+    from scene_generation_tpu_torch.data.image_utils import deprocess
+    from scene_generation_tpu_torch.vis import one_hot_to_rgb_compact
     real = deprocess(_host(batch.imgs[0]))
     pred = deprocess(_host(metrics["_imgs_pred"][0]))
     writer.add_image("img/real", real.transpose(2, 0, 1), index)

@@ -338,6 +338,21 @@ def _edge_boxes(o):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [8, 64])
+def test_crop_forward_matches_plain_at_the_accuracy_crops(device, dtype, n):
+    """The accuracy net's 224 px crops of 128 px images (hats that
+    upsample every box), at sample_images' batch 8 and eval_run's 64 (576
+    crops): the kernel equals the plain version (f32 within 1e-5 of the
+    largest value; bf16 one rounding)."""
+    imgs, ry, rx, _ = _crop_case(device, dtype, n, 128, 128, 3, 9, 224, 224)
+    got = crop_fwd(imgs, ry, rx)
+    want = crop_fwd_plain(imgs, ry, rx)
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -7
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= rel * float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hh", [64, 32])
 def test_crop_kernels_match_plain_on_edge_hats(device, dtype, hh):
     rng = np.random.RandomState(3)
