@@ -26,22 +26,34 @@ serving its ``best/``; its checkpoints take about 5 GB of temporary
 disk), and the inference and evaluation tools on that ``best/``
 (``eval_phase``: encode_features, train_accuracy_net, sample_images,
 compute_fid, compute_diversity, the GUI server), each stage's kernel
-launches held to the counts the code predicts. Every phase prints one
-line; any failure raises and the exit code is non-zero. Without a CUDA
-device it exits non-zero before printing any result.
+launches held to the counts the code predicts. Then the COCO readers on
+this machine, which has no PIL (``coco_phase``: a fake COCO directory of
+480x360 PNGs, examples of both families, the native mask codec against
+its numpy version, the host's ms an example, ``train.main --coco_dir``
+with process workers and a checkpoint, ``--is_panoptic 1`` and
+``encode_features --coco_dir``), and last data parallelism
+(``ddp_phase``: two ranks on this card over gloo, one step at 6 + 6
+images against the single-process step on the 12, then
+``train.main --distributed`` with a checkpoint from rank 0 alone and a
+resume on both ranks; this script runs each rank as
+``--ddp-step`` / ``--ddp-cli``). Every phase prints one line; any
+failure raises and the exit code is non-zero. Without a CUDA device it
+exits non-zero before printing any result.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --only {stem,compositor,crop}
 
-builds and checks one kernel alone (its phase and its device times) and
-prints no result line: the quick loop while working on a kernel.
+builds and checks one kernel alone (its phase and its device times; the
+crop's also at a DDP rank's 6 images) and prints no result line: the
+quick loop while working on a kernel.
 """
 from __future__ import annotations
 
 import argparse
 import base64
+import collections
 import contextlib
 import dataclasses
 import json
@@ -678,6 +690,46 @@ def crop_device_times(cfg: Config, rows: dict) -> None:
             bound_ms=row["bound_ms"], clocks_sm=sm_clock())
 
 
+def crop_per_rank_times(cfg: Config, rows: dict) -> None:
+    """The crop forward and the train path's backward (d_img) at the shape
+    a data-parallel rank gives them (6 of the 12 images: 2 ranks), f32, at
+    64 and 32 px: against the plain versions, timed by CUDA events (kernel,
+    plain, ``grid_sample``) and by the profiler, with their bound. Rows
+    ``crop_fwd_per_rank`` / ``crop_bwd_per_rank`` in ``rows``; run at the
+    start of a process (``--only crop``)."""
+    n, dtype = TRAIN_BATCH // DDP_RANKS, torch.float32
+    for hh in (64, 32):
+        imgs, ry, rx, u, boxes = crop_case(cfg, hh, dtype, n=n)
+        libs = crop_library_calls(imgs, boxes, u)
+        out = crop_fwd(imgs, ry, rx)
+        d_img = crop_bwd(imgs, ry, rx, u, D_IMG_ONLY)[0]
+        torch.cuda.synchronize()
+        cases = {
+            "crop_fwd_per_rank": (lambda: crop_fwd(imgs, ry, rx),
+                                  lambda: crop_fwd_plain(imgs, ry, rx),
+                                  libs["crop_fwd"], out,
+                                  crop_fwd_plain(imgs, ry, rx), None),
+            "crop_bwd_per_rank": (
+                lambda: crop_bwd(imgs, ry, rx, u, D_IMG_ONLY),
+                lambda: crop_bwd_plain(imgs, ry, rx, u, D_IMG_ONLY),
+                libs["crop_bwd"], d_img, crop_bwd_plain(imgs, ry, rx, u)[0],
+                D_IMG_ONLY)}
+        for name, (fn, plain, lib, got, want, needs) in cases.items():
+            err = float((got - want).abs().max())
+            check(err <= 1e-5 * float(want.abs().max()),
+                  f"{name} HH={hh}: max abs err {err}")
+            b = bound(*crop_work(imgs, ry, rx, u, (got,), needs), dtype)
+            dev = device_kernels_ms(fn)
+            rows[(name, hh, dtype)] = row = dict(
+                batch=n, max_abs_err=err, ms=cuda_ms(fn),
+                plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib),
+                bound_ms=b[0], bound_by=b[1],
+                device_ms=device_total_ms(dev), device_kernels=dev,
+                library_device_ms=device_total_ms(device_kernels_ms(lib)))
+            say(f"kernel {name} device", hh=hh, dtype=str(dtype),
+                clocks_sm=sm_clock(), **row)
+
+
 def compositor_device_times(cfg: Config, rows: dict) -> None:
     """The compositor's device time per call at the serving shape (the
     profiler's own kernel times), added to ``rows``; run at the start of a
@@ -720,6 +772,8 @@ def fresh_device_times(stem_rows: dict, comp_rows: dict,
                 row = stem_rows[dtype]
             elif kernel == "compositor":
                 row = comp_rows[dtype]
+            elif kernel.endswith("_per_rank"):   # measured in the child
+                row = crop_rows.setdefault((kernel, rec["hh"], dtype), rec)
             else:
                 row = crop_rows[(kernel, rec["hh"], dtype)]
             row.update({k: rec[k] for k in ("device_ms", "device_kernels",
@@ -1549,6 +1603,467 @@ def gui_request(run: str, work: str) -> dict:
                 paths=resp)
 
 
+# --- the COCO readers on the card machine (no PIL) --------------------------
+
+COCO_TRAIN, COCO_VAL = 96, 24      # fake COCO images, 480x360 PNG
+COCO_STEPS, COCO_PAN_STEPS = 3, 2
+COCO_ENCODE = 96                   # encode_features: images, batch ACC_BATCH
+COCO_HOST_IMAGES = 24              # images timed on the host
+
+
+def coco_host_times(root: str) -> dict:
+    """The host's milliseconds an example, over COCO_HOST_IMAGES train
+    images: reading the file, ``decode_png``, the bilinear resize to the
+    model's 128 px, the mask codec (every instance and stuff segmentation
+    of the image) and a whole ``get_example`` of each family."""
+    from scene_generation_tpu_torch.data import image_utils, rle
+    ann = os.path.join(root, "annotations")
+    with open(os.path.join(ann, "instances_train2017.json")) as f:
+        inst = json.load(f)
+    with open(os.path.join(ann, "stuff_train2017.json")) as f:
+        segs = inst["annotations"] + json.load(f)["annotations"]
+    images = inst["images"][:COCO_HOST_IMAGES]
+    ms = {k: 0.0 for k in ("read", "decode", "resize", "rle")}
+    for im in images:
+        t = time.perf_counter()
+        with open(os.path.join(root, "images/train2017",
+                               im["file_name"]), "rb") as f:
+            data = f.read()
+        t1 = time.perf_counter()
+        img = image_utils.to_rgb(image_utils.decode_png(data))
+        t2 = time.perf_counter()
+        image_utils.resize(img, (128, 128), "bilinear")
+        t3 = time.perf_counter()
+        for a in segs:
+            if a["image_id"] == im["id"]:
+                rle.seg_to_mask(a["segmentation"], im["width"], im["height"])
+        t4 = time.perf_counter()
+        for k, dt in zip(ms, (t1 - t, t2 - t1, t3 - t2, t4 - t3)):
+            ms[k] += dt * 1e3 / len(images)
+    cfg = Config()
+    for panoptic in (False, True):
+        train, _ = train_cli.coco_datasets(cfg, root, panoptic)
+        t = time.perf_counter()
+        for i in range(COCO_HOST_IMAGES):
+            train.get_example(i, 1)
+        ms["get_example_" + ("panoptic" if panoptic else "instances")] = (
+            (time.perf_counter() - t) * 1e3 / COCO_HOST_IMAGES)
+    return ms
+
+
+def coco_phase(work: str) -> dict:
+    """The COCO readers without PIL, on the card machine: a fake COCO
+    directory written as 480x360 PNG (``tools.make_fake_coco_dir``),
+    examples of both families read and checked, the native mask codec held
+    against its numpy version on every segmentation, the host's times an
+    example; then ``train.main --coco_dir`` at the full default
+    ``Config()`` (batch 12, process workers, one checkpoint with its val
+    sweeps), ``--is_panoptic 1`` and ``encode_features --coco_dir`` on the
+    checkpoint, each stage's launches held to the counts the code
+    predicts."""
+    from scene_generation_tpu_torch.data import rle
+    from scene_generation_tpu_torch.tools import make_fake_coco_dir
+    root = os.path.join(work, "coco")
+    stages = {}
+    t = time.perf_counter()
+    make_fake_coco_dir.main(["--root", root, "--num_train", str(COCO_TRAIN),
+                             "--num_val", str(COCO_VAL), "--size", "480,360",
+                             "--image_format", "png"])
+    stages["make_fake_coco_dir"] = dict(seconds=time.perf_counter() - t)
+
+    t = time.perf_counter()
+    cfg = Config()
+    read = {}
+    for panoptic in (False, True):
+        train, val = train_cli.coco_datasets(cfg, root, panoptic)
+        family = "panoptic" if panoptic else "instances"
+        # Every fake image holds 3-4 instance + stuff objects; panoptic
+        # ones 2-3 segments, of which the filters keep those with 3.
+        check((len(train), len(val)) == (COCO_TRAIN, COCO_VAL) if not
+              panoptic else len(train) >= COCO_PAN_STEPS * TRAIN_BATCH,
+              f"{family}: {len(train)} train / {len(val)} val images pass "
+              f"the filters")
+        for i in range(4):
+            ex = train.get_example(i, 0)
+            o = len(ex.objs)
+            check(ex.image.shape == (128, 128, 3) and ex.image.dtype ==
+                  np.uint8 and int(ex.image.max()) > int(ex.image.min()),
+                  f"{family} example {i}: image {ex.image.shape}")
+            check(ex.masks.shape == (o, 32, 32) and set(np.unique(
+                ex.masks)) <= {0.0, 1.0} and ex.masks[:-1].any(),
+                f"{family} example {i}: masks")
+            check(ex.objs[-1] == 0 and np.isfinite(ex.boxes).all(),
+                  f"{family} example {i}: objects")
+        read[family] = dict(classes=train.num_classes, train=len(train),
+                            val=len(val))
+    with open(os.path.join(root, "annotations",
+                           "instances_train2017.json")) as f:
+        inst = json.load(f)
+    sizes = {im["id"]: (im["width"], im["height"]) for im in inst["images"]}
+    kinds = collections.Counter()
+    for a in inst["annotations"]:
+        seg = a["segmentation"]
+        w, h = sizes[a["image_id"]]
+        got = rle.seg_to_mask(seg, w, h)
+        check(np.array_equal(got, rle.seg_to_mask_py(seg, w, h))
+              and got.any(), f"mask codec differs on annotation {a['id']}")
+        kinds[type(seg).__name__ + (type(seg["counts"]).__name__
+                                    if isinstance(seg, dict) else "")] += 1
+    check(len(kinds) == 3, f"segmentation kinds {dict(kinds)}")
+    check("PIL" not in sys.modules, "the COCO readers imported PIL")
+    stages["read"] = dict(seconds=time.perf_counter() - t, families=read,
+                          rle_checked=dict(kinds))
+    host_ms = coco_host_times(root)
+    say("coco read", host_ms_per_example=host_ms, **stages["read"])
+
+    run = os.path.join(work, "run")
+    common = ["--coco_dir", root, "--batch_size", str(TRAIN_BATCH),
+              "--print_every", "1", "--num_val_samples", str(COCO_VAL),
+              "--timing", "--seed", str(SEED)]
+    # A step crops 4 times (the encoder, D_obj in G's loss, D_obj's fake
+    # and real passes) and differentiates one of them; a checkpoint's two
+    # val sweeps run the f32 stem and the encoder's crop once a batch.
+    val_batches = 2 * (COCO_VAL // TRAIN_BATCH)
+    runs = {"train": (COCO_STEPS, [
+                "--checkpoint_every", str(COCO_STEPS), "--output_dir", run],
+                {"crop_fwd": 4 * COCO_STEPS + val_batches,
+                 "crop_bwd": COCO_STEPS, "stem": val_batches}),
+            "train panoptic": (COCO_PAN_STEPS, [
+                "--is_panoptic", "1", "--output_dir",
+                os.path.join(work, "run_panoptic")],
+                {"crop_fwd": 4 * COCO_PAN_STEPS,
+                 "crop_bwd": COCO_PAN_STEPS})}
+    for name, (steps, argv, predicted) in runs.items():
+        with torch_default_tf32():
+            _, meta, log = _coco_stage(name, stages, predicted, lambda: (
+                _cli_main(common + argv + ["--num_iterations", str(steps)])))
+        stages[name]["timing_ms_per_step"] = [
+            float(ln.split()[1]) for ln in log.splitlines()
+            if ln.strip().startswith("[timing]")]
+        check(meta["counters"]["t"] == steps and all(
+            np.isfinite(v).all() for v in meta["losses"].values()),
+            f"coco {name}: counters {meta['counters']} or losses")
+        check(meta["vocab"]["is_panoptic"] == (name == "train panoptic"),
+              f"coco {name}: vocab is_panoptic")
+        torch.cuda.empty_cache()
+    feats = _coco_stage(
+        "encode_features", stages,
+        {"crop_fwd": -(-COCO_ENCODE // ACC_BATCH)},
+        lambda: encode_features.main([
+            "--output_dir", run, "--coco_dir", root, "--num_samples",
+            str(COCO_ENCODE), "--batch_size", str(ACC_BATCH), "--save_dir",
+            os.path.join(work, "features")]))
+    check(len(feats) >= 2 and all(np.isfinite(v).all()
+                                  for v in feats.values()),
+          f"encode_features --coco_dir: {len(feats)} classes")
+    say("coco", stage_seconds={k: v["seconds"] for k, v in stages.items()},
+        host_ms_per_example=host_ms,
+        train_ms_per_step={k: v["timing_ms_per_step"]
+                           for k, v in stages.items()
+                           if "timing_ms_per_step" in v})
+    return dict(stages=stages, host_ms=host_ms)
+
+
+def _coco_stage(name: str, stages: dict, predicted: dict, fn):
+    """One COCO stage with the launch counts set to 0 just before it; its
+    wall seconds and launches beside the predicted counts (it fails on any
+    other count)."""
+    _cuda.LAUNCHES.clear()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    stages[name] = dict(seconds=time.perf_counter() - t, launches=launches,
+                        predicted=predicted)
+    say(f"coco {name}", **stages[name])
+    check(launches == predicted, f"coco {name}: launches {launches}, "
+          f"predicted {predicted}")
+    return out
+
+
+# --- data parallelism: 2 ranks on the one card over gloo --------------------
+
+DDP_RANKS = 2
+DDP_TIMED_STEPS = 2     # steps after the compared one, timed
+DDP_CLI_STEPS, DDP_CLI_RESUMED = 3, 5
+DDP_SYNTHETIC = 96
+
+
+def ddp_config() -> Config:
+    """Phase 9's f32 configuration (discriminators in f32; TF32 off)."""
+    cfg = Config()
+    return cfg.replace(discriminator=dataclasses.replace(
+        cfg.discriminator, compute_dtype="float32"))
+
+
+def ddp_step_rank(out_dir: str) -> int:
+    """A rank of the DDP step (``--ddp-step``): joins the gloo group from
+    torchrun's environment, steps ``ddp_config()``'s seeded state on its
+    half of the 12 images, saves its loss shares, first moments, batch
+    statistics and pool counts, then times DDP_TIMED_STEPS more steps and
+    their collectives."""
+    from scene_generation_tpu_torch.parallel import data_parallel
+    comm, dev = data_parallel.init_process_group()
+    try:
+        cfg = ddp_config()
+        state = create_train_state(cfg, dev, seed=SEED, load_vgg=False,
+                                   comm=comm)
+        data_parallel.verify_replicated(comm, state)
+        batch = synthetic_batch(cfg, seed=7, batch_size=TRAIN_BATCH)
+        local = TRAIN_BATCH // comm.world_size
+        half = type(batch)(*(a[comm.rank * local:(comm.rank + 1) * local]
+                             for a in batch))
+        _cuda.LAUNCHES.clear()
+        metrics = train_step(state, half)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+        torch.save({
+            "metrics": {k: v.cpu() for k, v in metrics.items()
+                        if not k.startswith("_")},
+            "mu": {f"{name}.{pn}": opt.state[p]["mu"].cpu()
+                   for name, m, opt in state.trees()
+                   for pn, p in m.named_parameters()},
+            "buffers": {f"{name}.{bn}": b.cpu()
+                        for name, m, _ in state.trees()
+                        for bn, b in m.named_buffers()},
+            "pool_counts": state.pool.counts.cpu(),
+            "launches": launches, "objects": float(half.obj_mask.sum())},
+            os.path.join(out_dir, f"rank{comm.rank}.pt"))
+        calls, secs = comm.calls, comm.seconds
+        t = time.perf_counter()
+        for _ in range(DDP_TIMED_STEPS):
+            train_step(state, half)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3 / DDP_TIMED_STEPS
+        print(json.dumps({"ddp_rank": comm.rank, "ms_per_step": step_ms,
+                          "collective_ms_per_step": (comm.seconds - secs)
+                          * 1e3 / DDP_TIMED_STEPS,
+                          "collectives_per_step": (comm.calls - calls)
+                          / DDP_TIMED_STEPS, "launches": launches}),
+              flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def ddp_cli_rank(argv_json: str) -> int:
+    """A rank of ``train.main --distributed`` (``--ddp-cli``), in this
+    process so that the launches count: prints one JSON line with its
+    launches, the checkpoint files it wrote and its log."""
+    argv = json.loads(argv_json)
+    writes = []
+    orig = ckpt_mod._write_state
+
+    def write_state(directory, tree):
+        writes.append(directory)
+        return orig(directory, tree)
+
+    ckpt_mod._write_state = write_state
+    torch.backends.cuda.matmul.allow_tf32 = False     # PyTorch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    _cuda.LAUNCHES.clear()
+    _, meta, log = _cli_main(argv)
+    print(json.dumps({"ddp_cli_rank": int(os.environ["RANK"]),
+                      "launches": dict(_cuda.LAUNCHES), "writes": writes,
+                      "counters": meta["counters"], "log": log}), flush=True)
+    return 0
+
+
+def spawn_ranks(args, timeout: int = 600) -> list:
+    """``chip_smoke.py <args>`` as DDP_RANKS ranks on this card, with
+    torchrun's environment (one host, a free port); each rank's last JSON
+    line, in rank order. Fails if a rank fails."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(DDP_RANKS):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                   WORLD_SIZE=str(DDP_RANKS),
+                   LOCAL_WORLD_SIZE=str(DDP_RANKS),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__)] + args, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"DDP rank {r} of {' '.join(args[:1])} "
+              f"failed ({p.returncode}):\n{out[-3000:]}")
+    return [json.loads([ln for ln in out.splitlines()
+                        if ln.startswith("{")][-1]) for out in outs]
+
+
+def _joined_step(cfg: Config, batch, autotune: bool = False) -> tuple:
+    """One single-process f32 step of a seeded state on the card (with
+    ``autotune``, on the convolution algorithms cuDNN's benchmark mode
+    picks): its metrics, its trees' first moments and buffers (on the
+    host) and the pool's counts."""
+    state = create_train_state(cfg, "cuda", seed=SEED, load_vgg=False)
+    before = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = autotune
+    try:
+        metrics = {k: v.cpu() for k, v in train_step(state, batch).items()
+                   if not k.startswith("_")}
+    finally:
+        torch.backends.cudnn.benchmark = before
+    trees = [(name, {pn: opt.state[p]["mu"].cpu()
+                     for pn, p in m.named_parameters()},
+              {bn: b.cpu() for bn, b in m.named_buffers()})
+             for name, m, opt in state.trees()]
+    counts = state.pool.counts.cpu()
+    del state
+    torch.cuda.empty_cache()
+    return metrics, trees, counts
+
+
+def _worst_moment(trees: list, mus: dict) -> tuple:
+    """(error over tolerance, leaf) of the worst first moment in ``mus``
+    (``{"tree.param": mu}``) against ``trees``' under phase 9's rule:
+    5e-2 of the leaf's max plus 1e-4 of its tree's."""
+    worst = (0.0, "")
+    for name, want, _ in trees:
+        tree_max = max(float(m.abs().max()) for m in want.values())
+        for pn, m in want.items():
+            err = float((mus[f"{name}.{pn}"] - m).abs().max())
+            tol = 5e-2 * float(m.abs().max()) + 1e-4 * tree_max
+            worst = max(worst, (err / tol, f"{name}.{pn}"))
+    return worst
+
+
+def ddp_phase(work: str) -> dict:
+    """Data parallelism on the one card: two ranks over gloo (ranks that
+    share a card cannot use NCCL), one train step of ``ddp_config()`` at
+    6 + 6 images against one single-process step on the 12 from the same
+    state, to phase 9's f32 rule (losses within 1e-4 relative, first
+    moments within 5e-2 of a leaf's max plus 1e-4 of its tree's, batch
+    statistics within 1e-4 relative); then ``train.main --distributed``
+    under two ranks: DDP_CLI_STEPS steps with a checkpoint, and a resume to
+    DDP_CLI_RESUMED. Rank 0 alone writes checkpoints, both restore.
+    Gloo stages every collective through the host: its times say nothing
+    of NCCL across cards."""
+    cfg = ddp_config()
+    batch = synthetic_batch(cfg, seed=7, batch_size=TRAIN_BATCH)
+    want, trees, counts = _joined_step(cfg, batch)
+    # Witnesses of the f32 floor: the joined step again in this one
+    # process, (a) on the same 12 images with the halves swapped, where
+    # only the order of the batch sums changes, and (b) on cuDNN's
+    # autotuned convolution algorithms, which round otherwise, as batch 6
+    # and batch 12 do. Neither has a rank or a collective, so their gaps
+    # to the joined step are what rounding alone gives the 2-rank step.
+    half = TRAIN_BATCH // DDP_RANKS
+    swapped = type(batch)(*(np.concatenate([a[half:], a[:half]])
+                            for a in batch))
+    witness = {}
+    for name_, (b, autotune) in (("swapped", (swapped, False)),
+                                 ("autotuned", (batch, True))):
+        _, w_trees, _ = _joined_step(cfg, b, autotune)
+        witness[name_] = _worst_moment(
+            trees, {f"{name}.{pn}": m for name, mus, _ in w_trees
+                    for pn, m in mus.items()})
+
+    step_dir = os.path.join(work, "ddp_step")
+    os.makedirs(step_dir)
+    timing = spawn_ranks(["--ddp-step", step_dir])
+    got = [torch.load(os.path.join(step_dir, f"rank{r}.pt"),
+                      weights_only=True) for r in range(DDP_RANKS)]
+    check(got[0]["objects"] != got[1]["objects"],
+          "the halves hold the same object count")
+    loss_err = 0.0
+    for k, v in want.items():
+        if k == "use_gt":
+            check(all(float(g["metrics"][k]) == float(v) for g in got),
+                  "the ranks drew another use_gt than the joined step")
+            continue
+        total = sum(float(g["metrics"][k]) for g in got)
+        err = abs(total - float(v))
+        check(err <= 1e-4 * abs(float(v)) + 1e-6,
+              f"DDP loss {k}: {total} against the joined {float(v)}")
+        loss_err = max(loss_err, err / max(abs(float(v)), 1e-6))
+    worst, stat_err = (0.0, ""), 0.0
+    for g in got:
+        check(torch.equal(g["pool_counts"], counts), "DDP pool counts")
+        worst = max(worst, _worst_moment(trees, g["mu"]))
+        for name, _, bufs in trees:
+            for bn, b in bufs.items():
+                err = float((g["buffers"][f"{name}.{bn}"] - b).abs().max())
+                check(err <= 1e-4 * float(b.abs().max()) + 1e-7,
+                      f"DDP batch statistic {name}.{bn}: {err}")
+                stat_err = max(stat_err, err)
+    check(worst[0] <= 1.0, f"DDP first moment {worst[1]}: {worst[0]} of its "
+          "tolerance")
+    for t in timing:
+        check(t["launches"].get("crop_fwd") == 4
+              and t["launches"].get("crop_bwd") == 1,
+              f"DDP rank {t['ddp_rank']} step launches {t['launches']}")
+    step = dict(max_rel_loss_err=loss_err, max_moment_err_over_tol=worst[0],
+                worst_moment=worst[1], max_batch_stat_err=stat_err,
+                witness_moment_err_over_tol=witness,
+                objects=[g["objects"] for g in got], ranks=timing)
+    say("ddp step", **step)
+
+    run = os.path.join(work, "ddp_run")
+    common = ["--distributed", "--synthetic", "--synthetic_size",
+              str(DDP_SYNTHETIC), "--batch_size", str(TRAIN_BATCH),
+              "--print_every", "1", "--num_val_samples", str(TRAIN_BATCH),
+              "--timing", "--seed", str(SEED), "--output_dir", run,
+              "--checkpoint_every", str(DDP_CLI_STEPS)]
+    t0 = time.perf_counter()
+    first = spawn_ranks(["--ddp-cli", json.dumps(
+        common + ["--num_iterations", str(DDP_CLI_STEPS)])])
+    resumed = spawn_ranks(["--ddp-cli", json.dumps(
+        common + ["--num_iterations", str(DDP_CLI_RESUMED),
+                  "--restore_from_checkpoint", "1"])])
+    cli_s = time.perf_counter() - t0
+    root = os.path.join(run, "checkpoint")
+    for d in ("last", "best"):
+        check(os.path.exists(os.path.join(root, d, "state.pt")),
+              f"the DDP run wrote no {d}/state.pt")
+    for runs, steps in ((first, DDP_CLI_STEPS),
+                        (resumed, DDP_CLI_RESUMED - DDP_CLI_STEPS)):
+        check(bool(runs[0]["writes"]) and not runs[1]["writes"],
+              f"checkpoint writes by rank: {[r['writes'] for r in runs]}")
+        losses = [[ln for ln in r["log"].splitlines()
+                   if ln.startswith("  [") and "[timing]" not in ln]
+                  for r in runs]
+        check(losses[0] == losses[1] and len(losses[0]) > 0,
+              "the ranks logged different losses")
+        for r in runs:
+            sweeps = 2 if runs is first else 0    # one checkpoint, 2 sweeps
+            want_l = {"crop_fwd": 4 * steps + sweeps, "crop_bwd": steps,
+                      "stem": sweeps}
+            got_l = {k: r["launches"].get(k, 0) for k in want_l}
+            check(got_l == want_l, f"DDP CLI rank launches {got_l}, "
+                  f"predicted {want_l}")
+    for r in resumed:
+        check(f"restored checkpoint at t={DDP_CLI_STEPS}" in r["log"]
+              and r["counters"]["t"] == DDP_CLI_RESUMED,
+              f"a rank did not resume: {r['counters']}")
+
+    def per_rank(runs, what):
+        return [[float(ln.split()[1]) for ln in r["log"].splitlines()
+                 if ln.strip().startswith("[timing]") and what in ln]
+                for r in runs]
+
+    cli = dict(seconds=cli_s,
+               ms_per_step=per_rank(first + resumed, "sustained"),
+               collective_ms_per_step=per_rank(first + resumed,
+                                               "collectives"),
+               launches=[r["launches"] for r in first + resumed],
+               writes=[len(r["writes"]) for r in first + resumed],
+               note="gloo on one card stages collectives through the host; "
+                    "not NCCL across cards")
+    say("ddp train CLI", **cli)
+    return dict(step=step, cli=cli)
+
+
 def train_card_vs_cpu() -> None:
     """Phase 9: one train step of the full-width default ``Config()`` with
     every dtype f32 (TF32 off), batch 2, from one seed-initialised state
@@ -1660,9 +2175,15 @@ def generator_f64() -> None:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=("stem", "compositor", "crop"),
+    parser.add_argument("--only",
+                        choices=("stem", "compositor", "crop", "train"),
                         help="build and check one kernel alone (its phase "
-                        "and its device times); no result line")
+                        "and its device times), or run the train step's "
+                        "phase 8 alone; no result line")
+    parser.add_argument("--ddp-step", metavar="DIR",
+                        help="run as a rank of the DDP step phase")
+    parser.add_argument("--ddp-cli", metavar="ARGV_JSON",
+                        help="run as a rank of the DDP train CLI phase")
     args = parser.parse_args(argv)
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1671,6 +2192,10 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.ddp_step:
+        return ddp_step_rank(args.ddp_step)
+    if args.ddp_cli:
+        return ddp_cli_rank(args.ddp_cli)
     name = torch.cuda.get_device_name(0)
     card = smi("name,power.limit")
     say("device", name=name, count=torch.cuda.device_count(),
@@ -1679,17 +2204,25 @@ def main(argv=None) -> int:
     print(card, flush=True)
 
     t = time.perf_counter()
-    built = _cuda.build([args.only] if args.only else _cuda.KERNELS)
+    built = _cuda.build(_cuda.KERNELS if not args.only else
+                        ["crop"] if args.only == "train" else [args.only])
     say("build", seconds=time.perf_counter() - t,
         per_kernel={k: v["seconds"] for k, v in built.items()})
 
     cfg = with_model(Config(), compute_dtype="bfloat16")
+    if args.only == "train":
+        with torch_default_tf32():
+            train_on_card()
+        return 0
     if args.only:
         check_phase, times, kcfg = {
             "stem": (check_stem, stem_device_times, cfg),
             "compositor": (check_compositor, compositor_device_times, cfg),
             "crop": (check_crop, crop_device_times, Config())}[args.only]
-        times(kcfg, check_phase(kcfg))
+        rows = check_phase(kcfg)
+        times(kcfg, rows)
+        if args.only == "crop":
+            crop_per_rank_times(kcfg, rows)
         return 0
     stem_rows = check_stem(cfg)
     comp_rows = check_compositor(cfg)
@@ -1739,6 +2272,19 @@ def main(argv=None) -> int:
         shutil.rmtree(train_dir, ignore_errors=True)
     acc_launches = sum(evals[k]["launches"].get("crop_fwd", 0)
                        for k in ("train_accuracy_net", "sample_images"))
+    # Then the COCO readers and data parallelism, each in a work directory
+    # of its own (their checkpoints take 2.2 GiB a slot).
+    phase_s = {}
+    for name_, phase in (("coco", coco_phase), ("ddp", ddp_phase)):
+        work = tempfile.mkdtemp(prefix=f"sg_{name_}_")
+        t = time.perf_counter()
+        try:
+            phase_s[name_] = (phase(work), time.perf_counter() - t)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    coco, ddp = phase_s["coco"][0], phase_s["ddp"][0]
+    # A rank's launches in the DDP train CLI's first run (rank 0).
+    rank_launches = ddp["cli"]["launches"][0]
 
     # Each kernel's launches in the train CLI phase (the stem's: the f32
     # kernel of the val sweeps), beside the main path's count.
@@ -1780,6 +2326,20 @@ def main(argv=None) -> int:
             "scene_generation_tpu/ops/pallas/crop.py:126",
             train["launches"]["crop_bwd"],
             crop_rows[("crop_bwd", 32, torch.float32)]),
+        # The shapes of a DDP rank (6 of the 12 images, 32 px: D_obj's
+        # crops); launches of one rank in the DDP train CLI's first run.
+        dict(row("crop_fwd_per_rank",
+                 "scene_generation_tpu_torch/csrc/crop.cu",
+                 "scene_generation_tpu/ops/pallas/crop.py:88",
+                 rank_launches.get("crop_fwd", 0),
+                 crop_rows[("crop_fwd_per_rank", 32, torch.float32)]),
+             batch=TRAIN_BATCH // DDP_RANKS),
+        dict(row("crop_bwd_per_rank",
+                 "scene_generation_tpu_torch/csrc/crop.cu",
+                 "scene_generation_tpu/ops/pallas/crop.py:126",
+                 rank_launches.get("crop_bwd", 0),
+                 crop_rows[("crop_bwd_per_rank", 32, torch.float32)]),
+             batch=TRAIN_BATCH // DDP_RANKS),
         # The box gradients (d_ry, d_rx) alone: no path of the port asks
         # for them (boxes are batch constants), so 0 launches.
         row("crop_bwd_boxes", "scene_generation_tpu_torch/csrc/crop.cu",
@@ -1791,7 +2351,16 @@ def main(argv=None) -> int:
         img_per_s={k: v["img_per_s"] for k, v in rates.items()},
         train_ms_per_step=train["ms_per_step"],
         train_cli_ms_per_step=cli["timing_ms_per_step"], eval_seconds=eval_s,
-        eval_stage_seconds={k: v["seconds"] for k, v in evals.items()})
+        eval_stage_seconds={k: v["seconds"] for k, v in evals.items()},
+        phase_seconds={k: v[1] for k, v in phase_s.items()},
+        coco_stage_seconds={k: v["seconds"]
+                            for k, v in coco["stages"].items()},
+        coco_host_ms_per_example=coco["host_ms"],
+        ddp_step_ms={r["ddp_rank"]: r["ms_per_step"]
+                     for r in ddp["step"]["ranks"]},
+        ddp_collective_ms={r["ddp_rank"]: r["collective_ms_per_step"]
+                           for r in ddp["step"]["ranks"]},
+        ddp_cli_ms_per_step=ddp["cli"]["ms_per_step"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -29,7 +29,8 @@ import collections
 import multiprocessing
 import queue
 import threading
-from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from concurrent.futures import (CancelledError, ProcessPoolExecutor,
+                                ThreadPoolExecutor)
 from typing import Iterator
 
 import numpy as np
@@ -147,7 +148,14 @@ class DataLoader:
                 if stop.is_set():
                     return
                 tasks = [(int(i), epoch) for i in idxs]
-                examples = list(pool.map(fetch, tasks, chunksize=chunk))
+                try:
+                    examples = list(pool.map(fetch, tasks, chunksize=chunk))
+                except (CancelledError, RuntimeError):
+                    # close() shut the pool down (cancelling its work) after
+                    # the consumer stopped.
+                    if stop.is_set():
+                        return
+                    raise
                 batch = collate(examples, self.max_objs, self.max_triples)
                 # A put that honours stop: a blocking put would wedge this
                 # thread (and the executor's exit join) when the consumer

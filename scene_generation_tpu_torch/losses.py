@@ -14,13 +14,25 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from scene_generation_tpu_torch.parallel import data_parallel
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` in its dtype; under data parallelism this rank's
+    share of the global batch's mean (equal shapes on every rank)."""
+    return x.mean() / data_parallel.current().comm.world_size
+
 
 def _masked_mean(x: torch.Tensor, w: Optional[torch.Tensor]) -> torch.Tensor:
+    """``sum(x * w) / max(sum(w), 1)`` in f32, ``w`` broadcast over the
+    trailing axes; under data parallelism the denominator is the global
+    batch's (``parallel/data_parallel.py``)."""
     x = x.float()
     if w is None:
-        return x.mean()
-    w = w.reshape(w.shape + (1,) * (x.ndim - w.ndim)).expand_as(x).float()
-    return (x * w).sum() / torch.clamp(w.sum(), min=1.0)
+        return _mean(x)
+    total = data_parallel.current().total(w) * (x.numel() // w.numel())
+    w = w.reshape(w.shape + (1,) * (x.ndim - w.ndim)).float()
+    return (x * w).sum() / torch.clamp(total, min=1.0)
 
 
 def bce_loss(scores: torch.Tensor, target: torch.Tensor,
@@ -131,5 +143,5 @@ def vgg_perceptual_loss(feats_x: Sequence[torch.Tensor],
     detached."""
     loss = 0.0
     for wgt, fx, fy in zip(VGG_SLICE_WEIGHTS, feats_x, feats_y):
-        loss = loss + wgt * torch.abs(fx - fy.detach()).mean()
+        loss = loss + wgt * _mean(torch.abs(fx - fy.detach()))
     return loss

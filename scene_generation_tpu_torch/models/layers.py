@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from scene_generation_tpu_torch.parallel import data_parallel
+
 # flax's truncated normal: stddev / this constant has unit variance after
 # truncation at +-2 standard deviations.
 _TRUNC_STD = 0.87962566103423978
@@ -165,29 +167,39 @@ class MaskedBatchNorm(nn.Module):
         return y * scale.view(shape) + self.bias.to(x.dtype).view(shape)
 
     def _batch_stats(self, x: torch.Tensor, weights: Optional[torch.Tensor]):
+        """Mean and biased variance over the rows of every rank (and the
+        spatial positions), rows weighted by ``weights``: the weighted sums
+        and the count all-reduced in one differentiable call, GSPMD's
+        global batch statistics (in one process the sum is the identity)."""
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = [0] + list(range(2, x.ndim))
         feat = x.shape[1]
         if weights is None:
-            mean = xf.mean(dims)
-            var = (xf * xf).mean(dims) - mean * mean
-            count = torch.full((), xf.numel() / feat, device=x.device)
+            xw = xf
+            count = torch.full((1,), xf.numel() / feat, dtype=xf.dtype,
+                               device=xf.device)
         else:
-            w = weights.float().reshape((-1,) + (1,) * (x.ndim - 1))
-            per_row = xf.numel() / feat / x.shape[0]
-            denom = torch.clamp(w.sum() * per_row, min=1.0)
-            mean = (xf * w).sum(dims) / denom
-            var = (xf * xf * w).sum(dims) / denom - mean * mean
-            count = denom
-        var = torch.clamp(var, min=0.0)
-        with torch.no_grad():
-            m = self.momentum
-            unbias = count / torch.clamp(count - 1.0, min=1.0)
-            self.running_mean.mul_(1 - m).add_(m * mean.to(
-                self.running_mean.dtype))
-            self.running_var.mul_(1 - m).add_(m * (var * unbias).to(
-                self.running_var.dtype))
+            w = weights.to(xf.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+            xw = xf * w
+            count = (w.sum() * (xf.numel() / feat / x.shape[0])).reshape(1)
+        sums = data_parallel.all_reduce_sum(
+            data_parallel.current().comm,
+            torch.cat([xw.sum(dims), (xw * xf).sum(dims), count]))
+        count = torch.clamp(sums[-1], min=1.0)
+        mean = sums[:feat] / count
+        var = torch.clamp(sums[feat:2 * feat] / count - mean * mean, min=0.0)
+        self._update_running(mean, var, count)
         return mean, var
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor,
+                        count: torch.Tensor) -> None:
+        m = self.momentum
+        unbias = count / torch.clamp(count - 1.0, min=1.0)
+        self.running_mean.mul_(1 - m).add_(m * mean.to(
+            self.running_mean.dtype))
+        self.running_var.mul_(1 - m).add_(m * (var * unbias).to(
+            self.running_var.dtype))
 
 
 class MLP(nn.Module):

@@ -12,17 +12,35 @@ given.
     eval_run              all of the above, one stage after another
     gui_server            the interactive GUI's HTTP backend
 
-The synthetic dataset (``--synthetic``) is the only one ported; COCO
-waits for its readers (ROADMAP.md §1).
+    make_fake_coco_dir    a fake COCO directory, as a COCO download lays out
+
+Each tool reads ``--coco_dir`` (the JAX scripts' COCO datasets) or, with
+``--synthetic``, the procedural dataset.
 """
 
 
-def require_synthetic(a) -> None:
-    """Raise for the COCO mode of a tool: its readers are not ported."""
-    if not a.synthetic:
-        raise NotImplementedError(
-            f"--coco_dir {a.coco_dir}: COCO data is not ported yet "
-            "(ROADMAP.md §1: the COCO readers); pass --synthetic")
+def checkpoint_coco_dataset(model, a, split: str, mask_size=None,
+                            sample_attributes: bool = False,
+                            test_part: bool = False):
+    """The ``split`` ("train" or "val") COCO dataset of ``a.coco_dir`` for a
+    checkpoint: the panoptic family when its vocab says so (reference
+    sample_images.py:179), filtered by its data config, at most
+    ``a.num_samples`` images, and mapped onto its classes
+    (``insert_pre_trained_vocab``); the JAX scripts' ``build_loader`` and
+    ``build_coco_panoptic_dset`` (scripts/sample_images.py:68-110)."""
+    from scene_generation_tpu_torch.data.coco import coco_split
+    d = model.cfg.data
+    dset = coco_split(
+        a.coco_dir, split, bool(model.vocab.get("is_panoptic")),
+        image_size=d.image_size,
+        mask_size=d.mask_size if mask_size is None else mask_size,
+        min_object_size=d.min_object_size,
+        min_objects_per_image=d.min_objects_per_image,
+        max_objects_per_image=d.max_objects_per_image,
+        sample_attributes=sample_attributes, test_part=test_part,
+        max_samples=a.num_samples, seed=a.seed)
+    dset.insert_pre_trained_vocab(model.vocab["object_to_idx"])
+    return dset
 
 
 def device_of(a):

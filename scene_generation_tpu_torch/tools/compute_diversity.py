@@ -5,7 +5,7 @@ graph with independently drawn appearance clusters.
 
     python -m scene_generation_tpu_torch.tools.compute_diversity \\
         --output_dir <run> --features_path <dir>/features_clustered_100.npy \\
-        --synthetic [--num_samples 64] [--out_json d.json] [--cpu]
+        --coco_dir <coco> [--num_samples 64] [--out_json d.json] [--cpu]
 
 Without VGG16 / LPIPS-lin weights the distance runs on seeded random
 features with uniform lin weights: values are then relative only
@@ -22,7 +22,7 @@ import torch
 
 from scene_generation_tpu_torch.api import InferenceModel
 from scene_generation_tpu_torch.metrics_lpips import create_lpips_fn
-from scene_generation_tpu_torch.tools import device_of, require_synthetic
+from scene_generation_tpu_torch.tools import device_of
 from scene_generation_tpu_torch.tools.sample_images import build_loader
 
 
@@ -47,7 +47,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict:
     a = parse_args(argv)
-    require_synthetic(a)
     model = InferenceModel.from_checkpoint(
         a.output_dir, a.checkpoint_name, best=bool(a.best),
         features_path=a.features_path, device=device_of(a))

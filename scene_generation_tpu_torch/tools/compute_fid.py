@@ -6,7 +6,7 @@ reference README points at, README.md:77-79).
         --real_dir <gt pngs> --fake_dir <samples> [--out_json f.json] [--cpu]
 
 Images are read with ``decode_png`` and resized to 299x299 by PIL's
-bicubic filter, rebuilt in numpy (``resize_bicubic``: the same
+bicubic filter, rebuilt in numpy (``image_utils.resize``: the same
 coefficients and the same 8-bit fixed-point rounding), so the arrays equal
 the JAX script's; features are InceptionV3's pool3 or, without its
 weights, the shallow random CNN (``metrics_fid.py``).
@@ -14,62 +14,15 @@ weights, the shallow random CNN (``metrics_fid.py``).
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import os
-from typing import Iterator, Tuple
+from typing import Iterator
 
 import numpy as np
 
-from scene_generation_tpu_torch.data.image_utils import read_png
+from scene_generation_tpu_torch.data.image_utils import read_png, resize
 from scene_generation_tpu_torch.metrics_fid import FIDAccumulator
 from scene_generation_tpu_torch.tools import device_of
-
-_PRECISION_BITS = 22          # PIL's 8-bit resample: 32 - 8 - 2
-
-
-def _bicubic(x: np.ndarray) -> np.ndarray:
-    """PIL's bicubic kernel (a = -0.5)."""
-    a, x = -0.5, np.abs(x)
-    return np.where(x < 1, ((a + 2) * x - (a + 3)) * x * x + 1,
-                    np.where(x < 2, (((x - 5) * x + 8) * x - 4) * a, 0.0))
-
-
-@functools.lru_cache(maxsize=8)
-def _pil_weights(n_in: int, n_out: int) -> np.ndarray:
-    """(n_out, n_in) int64 fixed-point weights of one PIL resample pass
-    (``precompute_coeffs`` + ``normalize_coeffs_8bpc``)."""
-    scale = n_in / n_out
-    filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
-    w = np.zeros((n_out, n_in), np.float64)
-    for xx in range(n_out):
-        center = (xx + 0.5) * scale
-        lo = max(int(center - support + 0.5), 0)
-        hi = min(int(center + support + 0.5), n_in)
-        k = _bicubic((np.arange(lo, hi) - center + 0.5) / filterscale)
-        w[xx, lo:hi] = k / k.sum() if k.sum() != 0 else k
-    fixed = w * (1 << _PRECISION_BITS)
-    return np.trunc(np.where(fixed < 0, fixed - 0.5, fixed + 0.5)).astype(
-        np.int64)
-
-
-def _pass(img: np.ndarray, weights: np.ndarray, axis: int) -> np.ndarray:
-    x = np.moveaxis(img, axis, -1).astype(np.int64)
-    acc = x @ weights.T + (1 << (_PRECISION_BITS - 1))
-    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
-    return np.moveaxis(out, -1, axis)
-
-
-def resize_bicubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """(H, W, C) uint8 -> (size[0], size[1], C): ``PIL.Image.resize``
-    with its default bicubic filter, horizontal pass first."""
-    h, w = size
-    if img.shape[1] != w:
-        img = _pass(img, _pil_weights(img.shape[1], w), 1)
-    if img.shape[0] != h:
-        img = _pass(img, _pil_weights(img.shape[0], h), 0)
-    return img
 
 
 def iter_image_batches(directory: str, batch_size: int,
@@ -80,7 +33,7 @@ def iter_image_batches(directory: str, batch_size: int,
                    if f.lower().endswith((".png", ".jpg", ".jpeg")))
     batch = []
     for f in files:
-        arr = resize_bicubic(read_png(os.path.join(directory, f)), size)
+        arr = resize(read_png(os.path.join(directory, f)), size, "bicubic")
         batch.append(arr.astype(np.float32) / 255.0 * 2.0 - 1.0)
         if len(batch) == batch_size:
             yield np.stack(batch)

@@ -4,7 +4,8 @@ package's ``scripts/create_attributes_file.py``; reference
 ``attributes_10_25.pickle``, read by the datasets' attribute-sampling mode.
 
     python -m scene_generation_tpu_torch.tools.create_attributes_file \\
-        --synthetic [--num_samples 128] [--save_path models/attributes.pickle]
+        --coco_dir <coco> [--num_samples 128] \
+        [--save_path models/attributes_10_25.pickle]
 
 Host-only (numpy): it runs no model.
 """
@@ -18,8 +19,8 @@ from collections import defaultdict
 import numpy as np
 
 from scene_generation_tpu_torch.config import Config
+from scene_generation_tpu_torch.data.coco import coco_split
 from scene_generation_tpu_torch.data.synthetic import SyntheticDataset
-from scene_generation_tpu_torch.tools import require_synthetic
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -36,8 +37,14 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict:
     a = parse_args(argv)
-    require_synthetic(a)
-    dset = SyntheticDataset(Config(), size=a.num_samples or 128)
+    if a.synthetic:
+        dset = SyntheticDataset(Config(), size=a.num_samples or 128)
+    else:
+        size = tuple(int(x) for x in a.image_size.split(","))
+        dset = coco_split(a.coco_dir, "train", image_size=size,
+                          max_samples=a.num_samples,
+                          size_attribute_len=a.size_attribute_len,
+                          grid_size=a.grid_size)
     names = dset.vocab["my_idx_to_obj"]
     size_hist = defaultdict(lambda: np.zeros(a.size_attribute_len))
     loc_hist = defaultdict(lambda: np.zeros(a.grid_size))

@@ -2,7 +2,7 @@
 ``scripts/encode_features.py``; reference ``scripts/encode_features.py``).
 
     python -m scene_generation_tpu_torch.tools.encode_features \\
-        --output_dir <run> --synthetic [--num_samples 512] [--cpu]
+        --output_dir <run> --coco_dir <coco> [--num_samples 512] [--cpu]
 
 Crops every object of the dataset at ``object_size`` (the crop forward
 kernel on the card), encodes ``repr_net(image_encoder(crop))`` into a
@@ -30,7 +30,8 @@ from scene_generation_tpu_torch.data.loader import DataLoader
 from scene_generation_tpu_torch.data.synthetic import SyntheticDataset
 from scene_generation_tpu_torch.ops.crop import crop_bbox_batch
 from scene_generation_tpu_torch.ops.images import wire_to_float
-from scene_generation_tpu_torch.tools import device_of, require_synthetic
+from scene_generation_tpu_torch.tools import (checkpoint_coco_dataset,
+                                              device_of)
 
 TABLES = ((100, "100"), (10, "010"), (1, "001"))
 
@@ -76,11 +77,16 @@ def encode(model: InferenceModel, loader) -> Dict[int, np.ndarray]:
 
 def main(argv=None) -> Dict[int, np.ndarray]:
     a = parse_args(argv)
-    require_synthetic(a)
     model = InferenceModel.from_checkpoint(a.output_dir, a.checkpoint_name,
                                            device=device_of(a))
     cfg = model.cfg
-    dset = SyntheticDataset(cfg, size=a.num_samples or 64, seed=a.seed)
+    if a.synthetic:
+        dset = SyntheticDataset(cfg, size=a.num_samples or 64, seed=a.seed)
+    else:
+        # The train split, filtered by the checkpoint's data config (the
+        # reference reads checkpoint_args, encode_features.py:44-47), so
+        # the dictionary covers the objects the repr space trained on.
+        dset = checkpoint_coco_dataset(model, a, "train")
     loader = DataLoader(dset, batch_size=a.batch_size,
                         max_objs=cfg.data.max_objs,
                         max_triples=cfg.data.max_triples, shuffle=False,

@@ -3,7 +3,7 @@
 
     python -m scene_generation_tpu_torch.tools.sample_images \\
         --output_dir <run> --features_path <dir>/features_clustered_001.npy \\
-        --synthetic [--use_gt_boxes 1 --use_gt_masks 1] [--cpu]
+        --coco_dir <coco> [--use_gt_boxes 1 --use_gt_masks 1] [--cpu]
 
 The Figure-3 ablation modes (README.md:84-94): (c) ``--use_gt_boxes 1
 --use_gt_masks 1``, the GT layout; (d) ``--use_gt_attr 1``; (e)
@@ -36,7 +36,8 @@ from scene_generation_tpu_torch.data.synthetic import SyntheticDataset
 from scene_generation_tpu_torch.metrics import jaccard
 from scene_generation_tpu_torch.models.resnet import ResNet
 from scene_generation_tpu_torch.ops.crop import crop_bbox_batch
-from scene_generation_tpu_torch.tools import device_of, require_synthetic
+from scene_generation_tpu_torch.tools import (checkpoint_coco_dataset,
+                                              device_of)
 from scene_generation_tpu_torch.vis import draw_layout, draw_scene_graph
 
 
@@ -53,7 +54,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--use_gt_textures", type=int, default=0)
     p.add_argument("--sample_attributes", type=int, default=0)
     p.add_argument("--test_part", type=int, default=1,
-                   help="COCO only (skip the first 1024 val images)")
+                   help="1 (reference parity, coco.py:188-189): skip the "
+                        "first 1024 COCO val images; 0: use the whole val "
+                        "set (required for small fixture datasets)")
     p.add_argument("--accuracy_model_path", default=None,
                    help="accuracy-net file from train_accuracy_net")
     p.add_argument("--accuracy_tiny", type=int, default=0,
@@ -74,13 +77,22 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def build_loader(model: InferenceModel, a: argparse.Namespace) -> DataLoader:
-    """The evaluation set: ``max(num_samples, batch_size)`` synthetic
-    scenes of seed ``seed + 7`` (the JAX script's), in order, the last
-    partial batch kept."""
-    require_synthetic(a)
+    """The evaluation set, in order, the last partial batch kept: with
+    ``--synthetic`` ``max(num_samples, batch_size)`` scenes of seed
+    ``seed + 7`` (the JAX script's), else the COCO val split of the
+    checkpoint's family, with full-resolution GT masks under
+    ``--use_gt_masks`` (reference sample_images.py:67)."""
     cfg = model.cfg
-    dset = SyntheticDataset(cfg, size=max(a.num_samples, a.batch_size),
-                            seed=a.seed + 7)
+    if a.synthetic:
+        dset = SyntheticDataset(cfg, size=max(a.num_samples, a.batch_size),
+                                seed=a.seed + 7)
+    else:
+        mask_size = (cfg.data.image_size[0]
+                     if getattr(a, "use_gt_masks", 0) else None)
+        dset = checkpoint_coco_dataset(
+            model, a, "val", mask_size=mask_size,
+            sample_attributes=bool(a.sample_attributes),
+            test_part=bool(a.test_part))
     return DataLoader(dset, batch_size=a.batch_size,
                       max_objs=cfg.data.max_objs,
                       max_triples=cfg.data.max_triples, shuffle=False,
@@ -122,7 +134,6 @@ def accuracy_counts(net: ResNet, imgs: torch.Tensor, boxes: torch.Tensor,
 
 def main(argv=None) -> dict:
     a = parse_args(argv)
-    require_synthetic(a)
     model = InferenceModel.from_checkpoint(
         a.output_dir, a.checkpoint_name, best=bool(a.best),
         features_path=a.features_path, device=device_of(a))

@@ -4,7 +4,8 @@ truth object crops (port of the JAX package's
 ``scripts/train_accuracy_net.py:156-276``).
 
     python -m scene_generation_tpu_torch.tools.train_accuracy_net \\
-        --synthetic [--tiny] [--epochs 1] [--save_path models/accuracy_net.pt]
+        --coco_dir <coco> [--tiny] [--epochs 1] \
+        [--save_path models/accuracy_net.pt]
 
 Crops come from the crop forward kernel (on the card) at ``--crop_size``
 (224; 32 with ``--tiny`` or ``--small_net``); labels are the contiguous
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 
 from scene_generation_tpu_torch import resolve_device
 from scene_generation_tpu_torch.config import Config, tiny_config
+from scene_generation_tpu_torch.data.coco import coco_split
 from scene_generation_tpu_torch.data.loader import DataLoader
 from scene_generation_tpu_torch.data.synthetic import SyntheticDataset
 from scene_generation_tpu_torch.models.resnet import (ResNet,
@@ -33,7 +35,7 @@ from scene_generation_tpu_torch.models.resnet import (ResNet,
                                                       resnet101)
 from scene_generation_tpu_torch.ops.crop import crop_bbox_batch
 from scene_generation_tpu_torch.ops.images import wire_to_float
-from scene_generation_tpu_torch.tools import device_of, require_synthetic
+from scene_generation_tpu_torch.tools import device_of
 from scene_generation_tpu_torch.trainer.optim import Adam
 
 
@@ -85,11 +87,18 @@ def train_step(net: ResNet, opt: Adam, batch, crop: int, device):
 
 def main(argv=None) -> ResNet:
     a = parse_args(argv)
-    require_synthetic(a)
-    device = resolve_device(device_of(a))
     cfg = tiny_config() if a.tiny else Config()
-    dset = SyntheticDataset(cfg, size=a.synthetic_size, seed=a.seed)
-    num_classes = a.num_classes or cfg.model.num_objs
+    if a.synthetic:
+        dset = SyntheticDataset(cfg, size=a.synthetic_size, seed=a.seed)
+        num_classes = cfg.model.num_objs
+    else:
+        d = cfg.data
+        dset = coco_split(a.coco_dir, "train", image_size=d.image_size,
+                          mask_size=d.mask_size, max_samples=a.num_samples,
+                          seed=a.seed)
+        num_classes = dset.num_classes
+    num_classes = a.num_classes or num_classes
+    device = resolve_device(device_of(a))
     small = a.tiny or a.small_net
     crop = 32 if small else a.crop_size
     with torch.random.fork_rng(devices=[]):

@@ -14,14 +14,24 @@ lines (and the NaN gate) every ``--print_every`` steps -> every
 promotion and an asynchronous checkpoint -> a checkpoint on SIGTERM /
 SIGINT and at the end.
 
-It runs on the card unless ``--cpu`` (or ``--device cpu``) is given. The
-synthetic dataset is the only one ported: ``--coco_dir``, ``--is_panoptic``
-and ``--distributed`` wait for the COCO readers and data parallelism
-(ROADMAP.md). ``--scan_blocks`` (a JAX compile strategy) is accepted at 0.
+It runs on the card unless ``--cpu`` (or ``--device cpu``) is given, on
+``--coco_dir`` (instances + stuff, or ``--is_panoptic 1``; process
+workers) or ``--synthetic`` data (thread workers). ``--scan_blocks`` (a
+JAX compile strategy) is accepted at 0.
+
+    torchrun --nproc_per_node N -m scene_generation_tpu_torch.train \
+        --distributed --coco_dir <coco> ...
+
+runs data parallel (``parallel/data_parallel.py``): each rank loads its
+1/N slice of every global batch and the step is the global batch's;
+NCCL when every rank has a card of its own, gloo otherwise; rank 0 alone
+writes ``args.json``, TensorBoard and checkpoints, every rank restores,
+and the printed losses, the val sweeps, the NaN gate and the SIGTERM stop
+are agreed across ranks.
 
 The data stream is the JAX CLI's: epoch ``e``'s order is
-``default_rng((seed, e))`` over ``SyntheticDataset(seed)``, so both CLIs
-train on the same batches. A resume continues the stream after the last
+``default_rng((seed, e))`` over the dataset, so both CLIs train on the
+same batches. A resume continues the stream after the last
 batch the checkpoint consumed (meta ``counters["batch"]``); a checkpoint
 without that counter (one exported from JAX) starts the next epoch, as
 the JAX CLI does.
@@ -45,8 +55,10 @@ from scene_generation_tpu_torch import resolve_device
 from scene_generation_tpu_torch.config import (Config, DataConfig, LossConfig,
                                                ModelConfig, TrainConfig,
                                                tiny_config)
+from scene_generation_tpu_torch.data.coco import coco_split
 from scene_generation_tpu_torch.data.loader import DataLoader, device_prefetch
 from scene_generation_tpu_torch.data.synthetic import SyntheticDataset
+from scene_generation_tpu_torch.parallel import data_parallel
 from scene_generation_tpu_torch.trainer.checkpoint import CheckpointManager
 from scene_generation_tpu_torch.trainer.evaluation import check_model
 from scene_generation_tpu_torch.trainer.step import train_step
@@ -81,7 +93,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--num_val_samples", type=int, default=1024)
     p.add_argument("--coco_dir", type=str, default="datasets/coco")
     p.add_argument("--synthetic", action="store_true",
-                   help="procedural dataset (the only one ported yet)")
+                   help="procedural dataset instead of --coco_dir")
     p.add_argument("--is_panoptic", type=int, default=0)
     p.add_argument("--synthetic_size", type=int, default=512)
     p.add_argument("--tiny", action="store_true",
@@ -221,23 +233,42 @@ def config_from_args(a: argparse.Namespace) -> Config:
 
 
 def check_supported(a: argparse.Namespace) -> None:
-    todo = "is not ported yet (ROADMAP.md §1: the COCO readers, then DDP)"
-    if not a.synthetic:
-        raise NotImplementedError(f"--coco_dir {a.coco_dir}: COCO data {todo}")
-    if a.is_panoptic:
-        raise NotImplementedError(f"--is_panoptic: COCO panoptic data {todo}")
-    if a.distributed:
-        raise NotImplementedError(f"--distributed: data parallelism {todo}")
     if a.scan_blocks:
         raise NotImplementedError(
             "--scan_blocks 1 is a JAX compile strategy (nn.scan over the "
             "generator's blocks); the port runs them unrolled")
 
 
+def coco_datasets(cfg: Config, coco_dir: str, panoptic: bool):
+    """(train, val) COCO datasets of ``coco_dir`` in the layout of a COCO
+    download, filtered by ``cfg.data`` (the JAX CLI's ``build_datasets``,
+    train.py:274-323); their class mappings must agree."""
+    d = cfg.data
+    common = dict(image_size=d.image_size, mask_size=d.mask_size,
+                  min_object_size=d.min_object_size,
+                  min_objects_per_image=d.min_objects_per_image,
+                  max_objects_per_image=d.max_objects_per_image,
+                  instance_whitelist=d.instance_whitelist,
+                  stuff_whitelist=d.stuff_whitelist,
+                  include_other=d.include_other, seed=cfg.train.seed)
+    train = coco_split(coco_dir, "train", panoptic,
+                       max_samples=d.num_train_samples, **common)
+    val = coco_split(coco_dir, "val", panoptic,
+                     max_samples=d.num_val_samples, **common)
+    if train.vocab["object_to_idx"] != val.vocab["object_to_idx"]:
+        raise ValueError(f"{coco_dir}: the train and val splits observe "
+                         "different classes")
+    return train, val
+
+
 def build_datasets(cfg: Config, a: argparse.Namespace):
-    train = SyntheticDataset(cfg, size=a.synthetic_size, seed=cfg.train.seed)
-    val = SyntheticDataset(cfg, size=max(8, a.synthetic_size // 8),
-                           seed=cfg.train.seed + 1)
+    if a.synthetic:
+        train = SyntheticDataset(cfg, size=a.synthetic_size,
+                                 seed=cfg.train.seed)
+        val = SyntheticDataset(cfg, size=max(8, a.synthetic_size // 8),
+                               seed=cfg.train.seed + 1)
+    else:
+        train, val = coco_datasets(cfg, a.coco_dir, bool(a.is_panoptic))
     return train.vocab, train, val
 
 
@@ -246,12 +277,16 @@ def _host(x) -> np.ndarray:
         else np.asarray(x)
 
 
-def _scalars(metrics) -> dict:
-    """Every logged scalar in one device-to-host transfer."""
+def _scalars(metrics, comm: data_parallel.Collectives) -> dict:
+    """Every logged scalar in one device-to-host transfer. Under data
+    parallelism the ranks' loss shares are summed first (one all-reduce),
+    so every rank logs, and gates on, the global losses."""
     keys = [k for k in metrics if not k.startswith("_")]
     vals = torch.stack([metrics[k].detach().float().reshape(())
-                        for k in keys]).tolist()
-    return dict(zip(keys, vals))
+                        for k in keys])
+    shares = torch.tensor([k != "use_gt" for k in keys], device=vals.device)
+    vals = torch.where(shares, comm.all_reduce_(vals.clone()), vals)
+    return dict(zip(keys, vals.tolist()))
 
 
 def _write_images(writer, batch, metrics, cfg: Config, index: int) -> None:
@@ -276,8 +311,28 @@ def main(argv=None, on_step: Optional[Callable] = None):
     given, runs after each step."""
     a = parse_args(argv)
     check_supported(a)
-    dev = resolve_device("cpu" if a.cpu else a.device)
+    device = "cpu" if a.cpu else a.device
+    if not a.distributed:
+        return _train(a, resolve_device(device), data_parallel.SINGLE,
+                      on_step)
+    comm, dev = data_parallel.init_process_group(device)
+    try:
+        return _train(a, dev, comm, on_step)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _train(a: argparse.Namespace, dev: torch.device,
+           comm: data_parallel.Collectives,
+           on_step: Optional[Callable]):
+    # One writer of record: args.json, TensorBoard and checkpoints come
+    # from rank 0, whose replica every rank shares.
+    rank, world = comm.rank, comm.world_size
+    primary = rank == 0
     cfg = config_from_args(a)
+    if cfg.data.batch_size % world:
+        raise ValueError(f"--batch_size {cfg.data.batch_size} must be "
+                         f"divisible by the {world} ranks")
     vocab, train_dset, val_dset = build_datasets(cfg, a)
     num_objs = len(vocab["object_to_idx"])
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, num_objs=num_objs))
@@ -285,22 +340,26 @@ def main(argv=None, on_step: Optional[Callable] = None):
           f"{num_objs} classes")
 
     os.makedirs(cfg.train.output_dir, exist_ok=True)
-    with open(os.path.join(cfg.train.output_dir, "args.json"), "w") as f:
-        json.dump(vars(a), f)
-
     writer = None
-    try:
-        from tensorboardX import SummaryWriter
-        writer = SummaryWriter(cfg.train.output_dir)
-    except Exception:
-        pass
+    if primary:
+        with open(os.path.join(cfg.train.output_dir, "args.json"), "w") as f:
+            json.dump(vars(a), f)
+        try:
+            from tensorboardX import SummaryWriter
+            writer = SummaryWriter(cfg.train.output_dir)
+        except Exception:
+            pass
 
-    # Synthetic generation is cheap numpy: threads avoid the spawn and
-    # pickle overhead of process workers.
+    # Process workers for COCO (image decode and mask rasterization compete
+    # with the training loop for the GIL; the reference uses 4 worker
+    # processes, train.py:71-77); synthetic generation is cheap numpy, and
+    # threads avoid the spawn and pickle overhead. Each rank computes the
+    # same global order and loads its 1/world slice of every batch.
     dl_kwargs = dict(batch_size=cfg.data.batch_size,
                      max_objs=cfg.data.max_objs,
                      max_triples=cfg.data.max_triples, num_workers=4,
-                     worker_type="thread")
+                     worker_type="thread" if a.synthetic else "process",
+                     process_count=world, process_index=rank)
     train_loader = DataLoader(train_dset, shuffle=True,
                               seed=cfg.train.seed, **dl_kwargs)
     val_loader = DataLoader(val_dset, shuffle=cfg.data.shuffle_val,
@@ -309,8 +368,9 @@ def main(argv=None, on_step: Optional[Callable] = None):
         raise ValueError(f"{len(train_dset)} training images make no batch "
                          f"of {cfg.data.batch_size}")
 
-    state = create_train_state(cfg, dev, seed=cfg.train.seed)
-    ckpt = CheckpointManager(cfg.train.output_dir, cfg.train.checkpoint_name)
+    state = create_train_state(cfg, dev, seed=cfg.train.seed, comm=comm)
+    ckpt = CheckpointManager(cfg.train.output_dir, cfg.train.checkpoint_name,
+                             writer=primary)
     meta = None
     if cfg.train.restore_from_checkpoint and ckpt.has_checkpoint():
         meta = ckpt.load_meta()
@@ -318,6 +378,7 @@ def main(argv=None, on_step: Optional[Callable] = None):
         print(f"restored checkpoint at t={meta['counters']['t']}")
     if meta is None:
         meta = ckpt.new_meta(cfg, vocab)
+    data_parallel.verify_replicated(comm, state)
     t = meta["counters"]["t"]
     epoch = meta["counters"]["epoch"]
     consumed = meta["counters"].get("batch", 0)
@@ -346,7 +407,7 @@ def main(argv=None, on_step: Optional[Callable] = None):
     def val_sweep(use_gt: bool):
         return check_model(state.model, val_loader, use_gt=use_gt,
                            num_samples=cfg.data.num_val_samples,
-                           probs_fn=probs_fn)
+                           probs_fn=probs_fn, comm=comm)
 
     if a.initial_eval:
         tr = val_sweep(use_gt=True)
@@ -355,7 +416,10 @@ def main(argv=None, on_step: Optional[Callable] = None):
             writer.add_scalar("checkpoint/val_gt_iou", tr[0], 0)
             writer.add_scalar("checkpoint/val_gt_inception_mean", tr[1], 0)
 
-    print(f"training on {dev}; {cfg.train.num_iterations} iterations")
+    print(f"training on {dev}" + ("" if world == 1 else
+                                  f" (rank {rank} of {world}, "
+                                  f"{comm.backend})")
+          + f"; {cfg.train.num_iterations} iterations")
 
     t_start = time.time()
     timing_anchor = None  # (step, wall) of the previous print (--timing)
@@ -382,7 +446,9 @@ def main(argv=None, on_step: Optional[Callable] = None):
     prefetched = device_prefetch(stream, dev)
     try:
         for batch in prefetched:
-            if t >= cfg.train.num_iterations or stop_requested["flag"]:
+            # Every rank stops at the same step (agreed on the host).
+            stop = data_parallel.any_rank(comm, stop_requested["flag"])
+            if t >= cfg.train.num_iterations or stop:
                 break
             t += 1
             epoch, consumed = epoch_q.popleft()
@@ -405,7 +471,7 @@ def main(argv=None, on_step: Optional[Callable] = None):
 
             if t % cfg.train.print_every == 0 or t == 1:
                 index = t // cfg.train.print_every
-                scalars = _scalars(metrics)
+                scalars = _scalars(metrics, comm)
                 # NaN gate, on the print's readback (no extra sync): the
                 # last good checkpoint is left alone, the poisoned state
                 # is saved under <name>_nan_abort.
@@ -414,7 +480,8 @@ def main(argv=None, on_step: Optional[Callable] = None):
                     print(f"FATAL: non-finite losses at t={t}: {bad}")
                     nan_ckpt = CheckpointManager(
                         cfg.train.output_dir,
-                        cfg.train.checkpoint_name + "_nan_abort")
+                        cfg.train.checkpoint_name + "_nan_abort",
+                        writer=primary)
                     nan_meta = dict(meta)
                     nan_meta["counters"] = {"t": t, "epoch": epoch,
                                             "batch": consumed}
@@ -433,12 +500,17 @@ def main(argv=None, on_step: Optional[Callable] = None):
                 # --timing: wall ms/step over the window since the previous
                 # print (loader, copy and compute; the readback above
                 # drains the queue). The t=1 window is skipped.
+                coll_s = comm.seconds
                 if a.timing and t > 1 and timing_anchor is not None:
-                    at, atime = timing_anchor
+                    at, atime, acoll = timing_anchor
                     win = (now - atime) / (t - at)
                     print(f"  [timing] {win * 1e3:.1f} ms/step sustained "
                           f"over steps {at + 1}..{t}", flush=True)
-                timing_anchor = (t, now)
+                    if world > 1:
+                        coll = (coll_s - acoll) / (t - at)
+                        print(f"  [timing] {coll * 1e3:.1f} ms/step in "
+                              f"collectives ({comm.backend})", flush=True)
+                timing_anchor = (t, now, coll_s)
                 for name, val in sorted(scalars.items()):
                     print(f"  [{name}]: {val:.4f}")
                     meta["losses"].setdefault(name, []).append(val)
@@ -479,6 +551,8 @@ def main(argv=None, on_step: Optional[Callable] = None):
     finally:
         prefetched.close()
         stream.close()
+        train_loader.close()
+        val_loader.close()
         for s, h in handlers.items():
             signal.signal(s, h)
         if prof is not None:

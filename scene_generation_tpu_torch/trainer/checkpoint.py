@@ -88,15 +88,21 @@ def _write_state(directory: str, tree) -> None:
 
 
 class CheckpointManager:
+    """``writer=False`` (every rank of a data-parallel run but rank 0, whose
+    replica is the same) makes ``save`` and ``save_meta`` no-ops: one
+    writer of record (JAX ``trainer/checkpoint.py:31-77``); every rank
+    restores."""
+
     def __init__(self, output_dir: str, checkpoint_name: str = "checkpoint",
-                 use_async: bool = True):
+                 use_async: bool = True, writer: bool = True):
         self.root = os.path.abspath(os.path.join(output_dir, checkpoint_name))
         os.makedirs(self.root, exist_ok=True)
+        self.writer = writer
         # One worker: the writes land in the order they were queued.
         self._exec: Optional[concurrent.futures.ThreadPoolExecutor] = (
             concurrent.futures.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="ckpt")
-            if use_async else None)
+            if use_async and writer else None)
         self._pending: List[concurrent.futures.Future] = []
 
     # --- metadata sidecar ---
@@ -117,6 +123,8 @@ class CheckpointManager:
     def save_meta(self, meta: Dict[str, Any]) -> None:
         """Serialize ``meta`` now (the caller goes on changing it) and write
         it after every state save queued before it."""
+        if not self.writer:
+            return
         payload = json.dumps(meta)
 
         def write():
@@ -181,6 +189,8 @@ class CheckpointManager:
         step's in-place update, so the background thread reads the state
         as of this call. It costs one state-sized device allocation until
         the write is done."""
+        if not self.writer:
+            return
         directory = os.path.dirname(self.state_path(best))
         tree = _state_tree(state)
         if self._exec is None:

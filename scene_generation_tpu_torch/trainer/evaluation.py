@@ -17,6 +17,9 @@ import torch
 from scene_generation_tpu_torch.data.batching import Batch
 from scene_generation_tpu_torch.metrics import jaccard
 from scene_generation_tpu_torch.models.model import SceneModel
+from scene_generation_tpu_torch.parallel.data_parallel import (SINGLE,
+                                                               Collectives,
+                                                               gather)
 from scene_generation_tpu_torch.trainer.step import batch_to, generator_dtype
 
 
@@ -78,34 +81,40 @@ def inception_score_from_probs(probs: np.ndarray,
 def check_model(model: SceneModel, loader, use_gt: bool, num_samples: int,
                 probs_fn: Optional[Callable] = None,
                 generator: Optional[torch.Generator] = None,
-                splits: int = 5):
+                splits: int = 5, comm: Collectives = SINGLE):
     """-> (avg_iou, inception_mean, inception_std, recall05, recall03)
     over the first ``num_samples`` images of ``loader`` (whole batches).
     Each batch's mask noise is drawn on the CPU from ``generator``
     (``manual_seed(0)`` by default), so a sweep draws nothing from the
-    train state's generator."""
+    train state's generator. Under data parallelism (``comm``) the loader
+    gives this rank's slice of each batch; IoU, recall and box counts are
+    summed across ranks before dividing and the class probabilities
+    gathered, so every rank returns the global sweep's values (and takes
+    the same best-promotion decision)."""
     eval_step = make_eval_step(use_gt)
     gen = generator if generator is not None else \
         torch.Generator().manual_seed(0)
-    total_iou = total_boxes = total_r05 = total_r03 = 0.0
+    totals = None
     seen = 0
     all_probs = []
     for batch in loader:
         noise = torch.randn(model.cfg.mask_noise_dim, generator=gen)
         imgs_pred, iou_sum, r05, r03, nbox = eval_step(model, batch, noise)
-        # One device-to-host transfer for the four scalars.
-        iou_sum, r05, r03, nbox = torch.stack(
-            [iou_sum, r05, r03, nbox]).tolist()
-        total_iou += iou_sum
-        total_r05 += r05
-        total_r03 += r03
-        total_boxes += nbox
+        stats = torch.stack([iou_sum, r05, r03, nbox]).double()
+        totals = stats if totals is None else totals + stats
         if probs_fn is not None:
-            all_probs.append(torch.as_tensor(probs_fn(imgs_pred))
-                             .float().cpu().numpy())
-        seen += batch.num_images
+            probs = torch.as_tensor(probs_fn(imgs_pred)).float()
+            probs = gather(comm, probs.to(iou_sum.device))
+            all_probs.append(probs.cpu().numpy())
+        seen += batch.num_images * comm.world_size
         if seen >= num_samples:
             break
+    if totals is None:
+        totals = torch.zeros(4, dtype=torch.float64)
+    else:
+        comm.all_reduce_(totals)
+    # One device-to-host transfer for the four sums.
+    total_iou, total_r05, total_r03, total_boxes = totals.tolist()
     avg_iou = total_iou / max(total_boxes, 1.0)
     if all_probs:
         imean, istd = inception_score_from_probs(

@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from scene_generation_tpu_torch.config import TrainConfig
+from scene_generation_tpu_torch.parallel import data_parallel
 
 _STORAGE = {"": None, "float32": torch.float32, "bfloat16": torch.bfloat16,
             "float16": torch.float16}
@@ -164,11 +165,14 @@ def step(opt: Adam, loss: torch.Tensor, params: Sequence[torch.Tensor],
          grads_dtype: Optional[torch.dtype] = None) -> None:
     """One update of ``params`` by the gradient of ``loss`` with respect to
     them alone (other leaves of the graph get no ``.grad``): zero where
-    the loss does not reach a parameter, cast to ``grads_dtype`` (the JAX
-    step's cast at the backward-to-optimizer boundary) when given."""
+    the loss does not reach a parameter, summed over the ranks under data
+    parallelism (the loss is this rank's share), cast to ``grads_dtype``
+    (the JAX step's cast at the backward-to-optimizer boundary) when
+    given."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
+    grads = data_parallel.reduce_grads(data_parallel.current().comm, grads)
     if grads_dtype is not None:
         grads = [g.to(grads_dtype) for g in grads]
     opt.update(grads)

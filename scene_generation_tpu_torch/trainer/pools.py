@@ -20,6 +20,9 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from scene_generation_tpu_torch.parallel.data_parallel import (Collectives,
+                                                               gather)
+
 
 class VectorPool(NamedTuple):
     vecs: torch.Tensor      # (C, P, R)
@@ -82,3 +85,22 @@ def pool_query(pool: VectorPool, base: torch.Tensor, objs: torch.Tensor,
     vecs[write_cls, write_slot] = reprs.to(vecs.dtype)
     counts = torch.clamp(pool.counts + one_hot.sum(0), max=pool_size)
     return wrong.to(reprs.dtype), VectorPool(vecs[:num_classes], counts)
+
+
+@torch.no_grad()
+def pool_query_gathered(comm: Collectives, pool: VectorPool,
+                        base: torch.Tensor, objs: torch.Tensor,
+                        reprs: torch.Tensor, obj_mask: torch.Tensor
+                        ) -> Tuple[torch.Tensor, VectorPool]:
+    """``pool_query`` of the global batch under data parallelism: every
+    rank's objects, vectors and mask gathered in rank order (one
+    collective), queried alike on every rank, so the pool stays
+    replicated; returns this rank's rows of ``wrong_reprs`` (in one
+    process, ``pool_query`` of the batch)."""
+    packed = torch.cat([objs.float()[:, None], obj_mask.float()[:, None],
+                        reprs.float()], 1)
+    every = gather(comm, packed)
+    wrong, pool = pool_query(pool, base, every[:, 0].long(),
+                             every[:, 2:].to(reprs.dtype), every[:, 1])
+    n = objs.shape[0]
+    return wrong[comm.rank * n:(comm.rank + 1) * n], pool

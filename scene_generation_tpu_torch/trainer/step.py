@@ -39,7 +39,9 @@ from scene_generation_tpu_torch.data.batching import Batch
 from scene_generation_tpu_torch.ops.images import wire_to_float
 from scene_generation_tpu_torch.ops.layout import masks_to_layout
 from scene_generation_tpu_torch.trainer import optim
-from scene_generation_tpu_torch.trainer.pools import draw_base, pool_query
+from scene_generation_tpu_torch.parallel import data_parallel
+from scene_generation_tpu_torch.trainer.pools import (draw_base,
+                                                      pool_query_gathered)
 from scene_generation_tpu_torch.trainer.train_state import TrainState
 
 TrainMetrics = Dict[str, torch.Tensor]
@@ -82,14 +84,23 @@ def train_step(state: TrainState, batch: Batch,
                draws: Optional[Draws] = None) -> TrainMetrics:
     """One G update and the three D updates, in place on ``state``.
 
-    Returns the JAX step's metrics (detached tensors on the device)."""
+    Returns the JAX step's metrics (detached tensors on the device). Under
+    data parallelism (``state.comm``) ``batch`` is this rank's slice of
+    the global batch, the step is the global batch's, and each loss metric
+    is this rank's share of the global loss (the shares sum to it)."""
+    b = batch_to(batch, state.device)
+    with data_parallel.step_shard(state.comm, b.obj_mask):
+        return _train_step(state, b, draws)
+
+
+def _train_step(state: TrainState, b: Batch,
+                draws: Optional[Draws]) -> TrainMetrics:
     cfg = state.cfg
     mc, lw, dc = cfg.model, cfg.loss, cfg.discriminator
     gan_g_loss, gan_d_loss = L.get_gan_losses(dc.gan_loss_type)
     use_lsgan = not dc.no_lsgan
     h, w = mc.image_size
     dev = state.device
-    b = batch_to(batch, dev)
     d = draw(state) if draws is None else Draws(
         *(torch.as_tensor(t, device=dev) for t in draws))
     use_gt = d.use_gt.float()
@@ -175,9 +186,11 @@ def train_step(state: TrainState, batch: Batch,
 
     # 2. Appearance pool -> wrong-texture layout.
     with record_function("train_step/pool"):
-        wrong_rep, state.pool = pool_query(
-            state.pool, d.pool_base, objs.reshape(n * o),
-            out.obj_repr.detach().reshape(n * o, mc.rep_size), flat_w)
+        query_args = (state.pool, d.pool_base, objs.reshape(n * o),
+                      out.obj_repr.detach().reshape(n * o, mc.rep_size),
+                      flat_w)
+        wrong_rep, state.pool = pool_query_gathered(state.comm,
+                                                    *query_args)
         wrong_vecs = torch.cat([out.cls_vecs.detach(),
                                 wrong_rep.reshape(n, o, mc.rep_size)], -1)
         layout_wrong = masks_to_layout(wrong_vecs, boxes, masks, obj_mask,

@@ -39,6 +39,8 @@ from scene_generation_tpu_torch.models.discriminators import (
     AcCropDiscriminator, MultiscaleDiscriminator, MultiscaleMaskDiscriminator)
 from scene_generation_tpu_torch.models.vgg import (Vgg19Features,
                                                    load_torch_vgg19)
+from scene_generation_tpu_torch.parallel.data_parallel import (SINGLE,
+                                                               Collectives)
 from scene_generation_tpu_torch.trainer.optim import adam
 from scene_generation_tpu_torch.trainer.pools import VectorPool, create_pool
 
@@ -50,10 +52,13 @@ class TrainState:
                  d_img: MultiscaleDiscriminator, d_obj: AcCropDiscriminator,
                  d_mask: MultiscaleMaskDiscriminator,
                  vgg: Optional[Vgg19Features], device: torch.device,
-                 seed: int = 0):
+                 seed: int = 0, comm: Collectives = SINGLE):
         t = cfg.train
         self.cfg = cfg
         self.device = device
+        # The process group of a data-parallel run (``parallel/``); a
+        # single process is the group of one.
+        self.comm = comm
         self.model = model.to(device).train()
         self.d_img = d_img.to(device).train()
         self.d_obj = d_obj.to(device).train()
@@ -128,8 +133,10 @@ def build_modules(cfg: Config):
 
 
 def create_train_state(cfg: Config, device: Optional[str] = None,
-                       seed: int = 0, load_vgg: bool = True) -> TrainState:
-    """Seed-initialised modules on ``device`` (CUDA unless ``"cpu"``).
+                       seed: int = 0, load_vgg: bool = True,
+                       comm: Collectives = SINGLE) -> TrainState:
+    """Seed-initialised modules on ``device`` (CUDA unless ``"cpu"``), one
+    replica of a data-parallel run under ``comm``.
 
     With ``load_vgg`` the VGG features load torchvision weights when a file
     is found (``models/vgg.py``), and stay random with a warning when none
@@ -144,4 +151,4 @@ def create_train_state(cfg: Config, device: Optional[str] = None,
         print("[scene_generation_tpu_torch] WARNING: no torchvision VGG19 "
               "checkpoint found; perceptual loss uses random projection "
               "features (set SGT_VGG19_WEIGHTS).")
-    return TrainState(cfg, *modules, device=dev, seed=seed)
+    return TrainState(cfg, *modules, device=dev, seed=seed, comm=comm)

@@ -147,7 +147,9 @@ def test_port_imports_no_jax():
         "       'tools.sample_images', 'tools.train_accuracy_net',\n"
         "       'tools.compute_fid', 'tools.compute_diversity',\n"
         "       'tools.create_attributes_file', 'tools.eval_run',\n"
-        "       'tools.gui_server']\n"
+        "       'tools.gui_server', 'data.coco', 'data.coco_panoptic',\n"
+        "       'data.rle', 'data.fake_coco', 'parallel.data_parallel',\n"
+        "       'tools.make_fake_coco_dir']\n"
         "missing = [m for m in new\n"
         "           if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n")

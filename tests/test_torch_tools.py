@@ -452,9 +452,12 @@ def test_eval_run_end_to_end(run, tmp_path, capsys):
                                   train_accuracy_net, create_attributes_file,
                                   compute_diversity])
 def test_coco_mode_raises_until_its_readers_are_ported(tool, run):
+    """The readers are ported: without ``--synthetic`` each tool reads
+    ``--coco_dir`` (here the default, which does not exist) and raises
+    the dataset's error (tests/test_torch_coco_cli.py runs them on one)."""
     argv = ["--output_dir", run.dir, "--cpu"] if tool not in (
         train_accuracy_net, create_attributes_file) else []
-    with pytest.raises(NotImplementedError, match="COCO"):
+    with pytest.raises(FileNotFoundError, match="datasets/coco/annotations"):
         tool.main(argv)
 
 
