@@ -26,7 +26,11 @@ serving its ``best/``; its checkpoints take about 5 GB of temporary
 disk), and the inference and evaluation tools on that ``best/``
 (``eval_phase``: encode_features, train_accuracy_net, sample_images,
 compute_fid, compute_diversity, the GUI server), each stage's kernel
-launches held to the counts the code predicts. Then the COCO readers on
+launches held to the counts the code predicts. Then the paper's
+checkpoint format (``reference_phase``: a seeded reference-format ``.pt``
+at full width ported by ``tools.port_reference_checkpoint``, bitwise,
+served at f32 through the 3xTF32 stem kernel and at bf16, one train step
+resumed from it), the COCO readers on
 this machine, which has no PIL (``coco_phase``: a fake COCO directory of
 480x360 PNGs, examples of both families, the native mask codec against
 its numpy version, the host's ms an example, ``train.main --coco_dir``
@@ -43,11 +47,12 @@ exits non-zero before printing any result.
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py --only {stem,compositor,crop}
+    python3 chip_smoke.py --only {stem,compositor,crop,train,ddp}
 
 builds and checks one kernel alone (its phase and its device times; the
-crop's also at a DDP rank's 6 images) and prints no result line: the
-quick loop while working on a kernel.
+crop's also at a DDP rank's 6 images), or runs the train step's phase 8 or
+the ddp phase alone, and prints no result line: the quick loop while
+working on one of them.
 """
 from __future__ import annotations
 
@@ -106,8 +111,10 @@ TRACE_STEPS = 5
 TRAIN_BATCH = 12
 TRAIN_STEPS = 3
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
-# them, HBM bandwidth.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# them, TF32 tensor cores (the f32 stem's 3xTF32: three TF32 products a
+# multiply-add, counted as three operations' worth), HBM bandwidth.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
+TF32_SPLIT_PRODUCTS = 3
 PEAK_BYTES = 3.35e12
 
 
@@ -180,8 +187,9 @@ def device_total_ms(kernels: dict):
     return sum(kernels.values()) if kernels else "not measured"
 
 
-def bound(flops: float, nbytes: float, dtype: torch.dtype):
-    """(ms, 'bytes' | 'operations'): the least time the card could take."""
+def bound(flops: float, nbytes: float, dtype):
+    """(ms, 'bytes' | 'operations'): the least time the card could take;
+    ``dtype`` a key of PEAK_FLOPS."""
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -232,9 +240,12 @@ def stem_library_call(w, g):
 
 def check_stem(cfg: Config) -> dict:
     """The stem kernel against its plain version at the serving shape, f32
-    (the CUDA-core kernel) and bf16 (the tensor-core kernel, twice, bitwise
-    equal), timed by CUDA events beside the plain version and the
-    grouped-conv yardstick. Device times come last (``stem_device_times``)."""
+    (the 3xTF32 kernel) and bf16 (the bf16 kernel), each twice, bitwise
+    equal, timed by CUDA events beside the plain version and the
+    grouped-conv yardstick. The f32 row's bound is its three TF32 products
+    at the TF32 tensor-core rate; ``cuda_core_bound_ms`` keeps the bound of
+    one f32 product on the CUDA cores (the kernel it replaced). Device times
+    come last (``stem_device_times``)."""
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         w, g = stem_inputs(cfg, dtype)
@@ -257,8 +268,14 @@ def check_stem(cfg: Config) -> dict:
             0, 2, 3, 1).float() - want.float()).abs().max())
         check(lib_err <= tol, f"grouped-conv yardstick disagrees: {lib_err}")
         flops = 2.0 * n * (hp - 6) * (wp - 6) * c * 49 * o
-        b_ms, b_by = bound(flops, nbytes(w, g, got), dtype)
-        rows[dtype] = dict(max_abs_err=err, tol=tol,
+        moved = nbytes(w, g, got)
+        extra = {}
+        if dtype == torch.float32:
+            b_ms, b_by = bound(TF32_SPLIT_PRODUCTS * flops, moved, "tf32")
+            extra["cuda_core_bound_ms"] = bound(flops, moved, dtype)[0]
+        else:
+            b_ms, b_by = bound(flops, moved, dtype)
+        rows[dtype] = dict(max_abs_err=err, tol=tol, **extra,
                            ms=cuda_ms(lambda: stem(w, g)),
                            plain_ms=cuda_ms(lambda: stem_plain(w, g)),
                            library_ms=cuda_ms(library),
@@ -1315,8 +1332,9 @@ def train_cli_phase(step_ms: float, tmp: str) -> dict:
     check(launches.get("crop_fwd", 0) >= 4 * CLI_STEPS
           and launches.get("crop_bwd", 0) >= CLI_STEPS,
           f"crop kernels not launched on every step: {launches}")
-    f32_stem = launches.get("stem", 0) - launches.get("stem_tc", 0)
-    check(f32_stem > 0, f"the val sweeps ran no f32 stem: {launches}")
+    f32_stem = launches.get("stem_f32", 0)
+    check(f32_stem > 0 and f32_stem == launches.get("stem", 0),
+          f"the val sweeps ran no f32 stem, or another one: {launches}")
     check(launches.get("crop_bwd_boxes", 0) == 0,
           f"the train CLI launched the d_ry / d_rx kernels: {launches}")
     timing = [float(ln.split()[1]) for ln in log.splitlines()
@@ -1427,10 +1445,11 @@ EVAL_SAMPLES = 16     # sample_images
 EVAL_PAIRS = 8        # compute_diversity
 
 
-def _stage(name: str, stages: dict, predicted: dict, fn):
-    """Run one eval stage with the launch counts set to 0 just before it;
-    record its wall seconds and launches beside the predicted counts, and
-    fail if they differ."""
+def _stage(name: str, stages: dict, predicted: dict, fn,
+           phase: str = "eval"):
+    """Run one stage of ``phase`` with the launch counts set to 0 just
+    before it; record its wall seconds and launches beside the predicted
+    counts, and fail if they differ."""
     _cuda.LAUNCHES.clear()
     t = time.perf_counter()
     out = fn()
@@ -1438,8 +1457,8 @@ def _stage(name: str, stages: dict, predicted: dict, fn):
     launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
     stages[name] = dict(seconds=time.perf_counter() - t, launches=launches,
                         predicted=predicted)
-    say(f"eval {name}", **stages[name])
-    check(launches == predicted, f"eval {name}: launches {launches}, "
+    say(f"{phase} {name}", **stages[name])
+    check(launches == predicted, f"{phase} {name}: launches {launches}, "
           f"predicted {predicted}")
     return out
 
@@ -1727,7 +1746,8 @@ def coco_phase(work: str) -> dict:
     runs = {"train": (COCO_STEPS, [
                 "--checkpoint_every", str(COCO_STEPS), "--output_dir", run],
                 {"crop_fwd": 4 * COCO_STEPS + val_batches,
-                 "crop_bwd": COCO_STEPS, "stem": val_batches}),
+                 "crop_bwd": COCO_STEPS, "stem": val_batches,
+                 "stem_f32": val_batches}),
             "train panoptic": (COCO_PAN_STEPS, [
                 "--is_panoptic", "1", "--output_dir",
                 os.path.join(work, "run_panoptic")],
@@ -1735,8 +1755,9 @@ def coco_phase(work: str) -> dict:
                  "crop_bwd": COCO_PAN_STEPS})}
     for name, (steps, argv, predicted) in runs.items():
         with torch_default_tf32():
-            _, meta, log = _coco_stage(name, stages, predicted, lambda: (
-                _cli_main(common + argv + ["--num_iterations", str(steps)])))
+            _, meta, log = _stage(name, stages, predicted, lambda: (
+                _cli_main(common + argv + ["--num_iterations", str(steps)])),
+                "coco")
         stages[name]["timing_ms_per_step"] = [
             float(ln.split()[1]) for ln in log.splitlines()
             if ln.strip().startswith("[timing]")]
@@ -1746,13 +1767,13 @@ def coco_phase(work: str) -> dict:
         check(meta["vocab"]["is_panoptic"] == (name == "train panoptic"),
               f"coco {name}: vocab is_panoptic")
         torch.cuda.empty_cache()
-    feats = _coco_stage(
+    feats = _stage(
         "encode_features", stages,
         {"crop_fwd": -(-COCO_ENCODE // ACC_BATCH)},
         lambda: encode_features.main([
             "--output_dir", run, "--coco_dir", root, "--num_samples",
             str(COCO_ENCODE), "--batch_size", str(ACC_BATCH), "--save_dir",
-            os.path.join(work, "features")]))
+            os.path.join(work, "features")]), "coco")
     check(len(feats) >= 2 and all(np.isfinite(v).all()
                                   for v in feats.values()),
           f"encode_features --coco_dir: {len(feats)} classes")
@@ -1762,23 +1783,6 @@ def coco_phase(work: str) -> dict:
                            for k, v in stages.items()
                            if "timing_ms_per_step" in v})
     return dict(stages=stages, host_ms=host_ms)
-
-
-def _coco_stage(name: str, stages: dict, predicted: dict, fn):
-    """One COCO stage with the launch counts set to 0 just before it; its
-    wall seconds and launches beside the predicted counts (it fails on any
-    other count)."""
-    _cuda.LAUNCHES.clear()
-    t = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
-    stages[name] = dict(seconds=time.perf_counter() - t, launches=launches,
-                        predicted=predicted)
-    say(f"coco {name}", **stages[name])
-    check(launches == predicted, f"coco {name}: launches {launches}, "
-          f"predicted {predicted}")
-    return out
 
 
 # --- data parallelism: 2 ranks on the one card over gloo --------------------
@@ -1796,13 +1800,15 @@ def ddp_config() -> Config:
         cfg.discriminator, compute_dtype="float32"))
 
 
-def ddp_step_rank(out_dir: str) -> int:
+def ddp_step_rank(out_dir: str, deterministic: bool = False) -> int:
     """A rank of the DDP step (``--ddp-step``): joins the gloo group from
     torchrun's environment, steps ``ddp_config()``'s seeded state on its
-    half of the 12 images, saves its loss shares, first moments, batch
+    half of the 12 images (on cuDNN's deterministic algorithms with
+    ``deterministic``), saves its loss shares, first moments, batch
     statistics and pool counts, then times DDP_TIMED_STEPS more steps and
     their collectives."""
     from scene_generation_tpu_torch.parallel import data_parallel
+    torch.backends.cudnn.deterministic = deterministic
     comm, dev = data_parallel.init_process_group()
     try:
         cfg = ddp_config()
@@ -1901,19 +1907,32 @@ def spawn_ranks(args, timeout: int = 600) -> list:
                         if ln.startswith("{")][-1]) for out in outs]
 
 
-def _joined_step(cfg: Config, batch, autotune: bool = False) -> tuple:
+@contextlib.contextmanager
+def cudnn_mode(autotune: bool = False, deterministic: bool = False):
+    """cuDNN's benchmark (autotuned algorithms) and deterministic flags
+    within the block."""
+    before = (torch.backends.cudnn.benchmark,
+              torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark = autotune
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.deterministic) = before
+
+
+def _joined_step(cfg: Config, batch, autotune: bool = False,
+                 deterministic: bool = False) -> tuple:
     """One single-process f32 step of a seeded state on the card (with
     ``autotune``, on the convolution algorithms cuDNN's benchmark mode
-    picks): its metrics, its trees' first moments and buffers (on the
-    host) and the pool's counts."""
+    picks; with ``deterministic``, on cuDNN's deterministic algorithms):
+    its metrics, its trees' first moments and buffers (on the host) and
+    the pool's counts."""
     state = create_train_state(cfg, "cuda", seed=SEED, load_vgg=False)
-    before = torch.backends.cudnn.benchmark
-    torch.backends.cudnn.benchmark = autotune
-    try:
+    with cudnn_mode(autotune, deterministic):
         metrics = {k: v.cpu() for k, v in train_step(state, batch).items()
                    if not k.startswith("_")}
-    finally:
-        torch.backends.cudnn.benchmark = before
     trees = [(name, {pn: opt.state[p]["mu"].cpu()
                      for pn, p in m.named_parameters()},
               {bn: b.cpu() for bn, b in m.named_buffers()})
@@ -1954,26 +1973,42 @@ def ddp_phase(work: str) -> dict:
     want, trees, counts = _joined_step(cfg, batch)
     # Witnesses of the f32 floor: the joined step again in this one
     # process, (a) on the same 12 images with the halves swapped, where
-    # only the order of the batch sums changes, and (b) on cuDNN's
-    # autotuned convolution algorithms, which round otherwise, as batch 6
-    # and batch 12 do. Neither has a rank or a collective, so their gaps
-    # to the joined step are what rounding alone gives the 2-rank step.
+    # only the order of the batch sums changes, (b) on cuDNN's autotuned
+    # convolution algorithms, and (c) as it is: the same function on the
+    # same inputs, apart only by the nondeterministic (atomic) sums of the
+    # backward. None has a rank or a collective. Then the joined step on
+    # cuDNN's deterministic algorithms, (d) run twice (what atomics outside
+    # cuDNN leave) and (e) against the 2-rank step on them.
     half = TRAIN_BATCH // DDP_RANKS
     swapped = type(batch)(*(np.concatenate([a[half:], a[:half]])
                             for a in batch))
+
+    def moments(w_trees):
+        return {f"{name}.{pn}": m for name, mus, _ in w_trees
+                for pn, m in mus.items()}
+
     witness = {}
     for name_, (b, autotune) in (("swapped", (swapped, False)),
-                                 ("autotuned", (batch, True))):
-        _, w_trees, _ = _joined_step(cfg, b, autotune)
+                                 ("autotuned", (batch, True)),
+                                 ("repeated", (batch, False))):
         witness[name_] = _worst_moment(
-            trees, {f"{name}.{pn}": m for name, mus, _ in w_trees
-                    for pn, m in mus.items()})
+            trees, moments(_joined_step(cfg, b, autotune)[1]))
+    _, det_trees, _ = _joined_step(cfg, batch, deterministic=True)
+    witness["deterministic_repeated"] = _worst_moment(det_trees, moments(
+        _joined_step(cfg, batch, deterministic=True)[1]))
 
-    step_dir = os.path.join(work, "ddp_step")
-    os.makedirs(step_dir)
-    timing = spawn_ranks(["--ddp-step", step_dir])
-    got = [torch.load(os.path.join(step_dir, f"rank{r}.pt"),
-                      weights_only=True) for r in range(DDP_RANKS)]
+    def ranks_step(directory, *flags):
+        os.makedirs(directory)
+        timing = spawn_ranks(["--ddp-step", directory, *flags])
+        return timing, [torch.load(os.path.join(directory, f"rank{r}.pt"),
+                                   weights_only=True)
+                        for r in range(DDP_RANKS)]
+
+    _, det_got = ranks_step(os.path.join(work, "ddp_step_det"),
+                            "--ddp-deterministic")
+    witness["deterministic_2_rank"] = max(
+        _worst_moment(det_trees, g["mu"]) for g in det_got)
+    timing, got = ranks_step(os.path.join(work, "ddp_step"))
     check(got[0]["objects"] != got[1]["objects"],
           "the halves hold the same object count")
     loss_err = 0.0
@@ -2038,7 +2073,7 @@ def ddp_phase(work: str) -> dict:
         for r in runs:
             sweeps = 2 if runs is first else 0    # one checkpoint, 2 sweeps
             want_l = {"crop_fwd": 4 * steps + sweeps, "crop_bwd": steps,
-                      "stem": sweeps}
+                      "stem": sweeps, "stem_f32": sweeps}
             got_l = {k: r["launches"].get(k, 0) for k in want_l}
             check(got_l == want_l, f"DDP CLI rank launches {got_l}, "
                   f"predicted {want_l}")
@@ -2062,6 +2097,175 @@ def ddp_phase(work: str) -> dict:
                     "not NCCL across cards")
     say("ddp train CLI", **cli)
     return dict(step=step, cli=cli)
+
+
+# --- the paper's own checkpoint: ported, served and resumed ---------------
+
+REF_COUNTERS = {"t": 1200, "epoch": 3}
+REF_BATCH = 16
+
+
+def _reference_pt(path: str) -> dict:
+    """A checkpoint in the reference trainer's format at the full default
+    widths (9 resblocks at 1024 channels, 172 classes, O=9), its weights
+    drawn from SEED (``tests/_reference_checkpoint.py``; the published
+    checkpoint is not in the repository), saved to ``path``."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    try:
+        from _reference_checkpoint import reference_checkpoint
+    finally:
+        sys.path.pop(0)
+    from scene_generation_tpu_torch.convert_reference import (
+        config_from_reference_args)
+    vocab = synthetic_vocab(Config().model.num_objs)
+    cfg = config_from_reference_args({}, vocab, "float32")
+    ckpt = reference_checkpoint(cfg, {}, vocab, seed=SEED,
+                                counters=dict(REF_COUNTERS))
+    torch.save(ckpt, path)
+    return ckpt
+
+
+def _serve_reference(run: str, dtype: str) -> dict:
+    """``n`` requests and a batch-16 forward of the ported checkpoint
+    through ``Server`` at ``dtype``; with f32, the stem kernel's inputs
+    and output of the batch-16 forward are recorded for the check against
+    ``stem_plain``."""
+    from scene_generation_tpu_torch.models import generators
+    server = Server(run, device="cuda")
+    check(server.model.cfg.model.compute_dtype == dtype,
+          f"served at {server.model.cfg.model.compute_dtype}, not {dtype}")
+    graphs = scene_graphs(server.model.vocab)
+    seen = []
+    kernel = generators.stem
+
+    def recording_stem(w, g):
+        out = kernel(w, g)
+        seen.append((w, g, out))
+        return out
+
+    _cuda.LAUNCHES.clear()
+    for sg in graphs:
+        resp = server.generate({"scene_graphs": [sg]})
+        check(png_pixels(resp["images"][0]).std() > 0,
+              f"ported {dtype}: constant image")
+    generators.stem = recording_stem
+    try:
+        out = forward_b16(server)
+    finally:
+        generators.stem = kernel
+    launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    check(tuple(out.imgs_pred.shape) == (REF_BATCH, 128, 128, 3),
+          f"ported imgs_pred {tuple(out.imgs_pred.shape)}")
+    check_images(out.imgs_pred, f"ported {dtype} b16")
+    return dict(launches=launches, requests=len(graphs), seen=seen,
+                img_std=float(out.imgs_pred.std()))
+
+
+def reference_phase(work: str) -> dict:
+    """The paper's own checkpoint on the card: a reference-format ``.pt``
+    at the full default widths ported by
+    ``tools.port_reference_checkpoint`` (f32), its weights held bitwise to
+    the ``.pt``'s; served at f32 (the 3xTF32 stem kernel; its output in
+    the forward held to ``stem_plain`` within 1e-4) and at bf16 (the bf16
+    stem kernel); then one train step resumed from it with
+    ``train --restore_from_checkpoint 1`` (the crop forward and d_img
+    kernels) and a checkpoint whose val sweeps run the f32 stem kernel.
+    Every stage's launches are held to the counts the code predicts."""
+    from scene_generation_tpu_torch.convert_reference import (
+        convert_reference_discriminators, convert_reference_state_dict)
+    from scene_generation_tpu_torch.tools import port_reference_checkpoint
+    stages = {}
+    pt = os.path.join(work, "checkpoint_with_model.pt")
+    run = os.path.join(work, "ported")
+
+    t = time.perf_counter()
+    ckpt = _reference_pt(pt)
+    stages["write_pt"] = dict(seconds=time.perf_counter() - t,
+                              bytes=os.path.getsize(pt))
+    meta = _stage("port", stages, {}, lambda: _quiet(
+        port_reference_checkpoint.main,
+        ["--torch_checkpoint", pt, "--output_dir", run,
+         "--compute_dtype", "float32"]), "reference")
+    check(meta["counters"] == REF_COUNTERS, f"counters {meta['counters']}")
+
+    # The ported weights, bitwise: the generator and the three
+    # discriminators as the checkpoint holds them, against the converter
+    # run here on the .pt's tensors.
+    cfg = Config.from_json(json.dumps(meta["config"]))
+    state = torch.load(ckpt_mod.CheckpointManager(run).state_path(),
+                       map_location="cpu", weights_only=True, mmap=True)
+    want = dict(convert_reference_discriminators(ckpt, cfg.discriminator),
+                g=convert_reference_state_dict(ckpt["model_state"],
+                                               cfg.model))
+    n_tensors = 0
+    for tree, sd in want.items():
+        check(state[tree].keys() == sd.keys(), f"ported {tree} keys")
+        for k, v in sd.items():
+            check(torch.equal(state[tree][k], v), f"ported {tree}.{k}")
+            n_tensors += 1
+    del state, ckpt
+
+    # Each serving: 3 requests and a batch-16 forward, a stem launch each.
+    f32 = _stage("serve_f32", stages, {"stem": 4, "stem_f32": 4},
+                 lambda: _serve_reference(run, "float32"), "reference")
+    w, g, got = f32.pop("seen")[-1]
+    want_stem = stem_plain(w, g)
+    stem_err = float((got - want_stem).abs().max())
+    check(stem_err <= 1e-4, f"ported f32 forward's stem: {stem_err}")
+    del w, g, got, want_stem
+    # bf16: the same weights (last/ linked) under a meta at bf16.
+    bf16_run = os.path.join(work, "ported_bf16")
+    mgr = ckpt_mod.CheckpointManager(bf16_run, use_async=False)
+    os.symlink(os.path.dirname(ckpt_mod.CheckpointManager(run).state_path()),
+               os.path.dirname(mgr.state_path()))
+    mgr.save_meta(dict(meta, config=json.loads(with_model(
+        cfg, compute_dtype="bfloat16").to_json())))
+    bf16 = _stage("serve_bf16", stages, {"stem": 4, "stem_tc": 4},
+                  lambda: _serve_reference(bf16_run, "bfloat16"),
+                  "reference")
+    bf16.pop("seen")
+
+    # One step resumed from t=1200 and a checkpoint at t=1201: 4 crop
+    # forwards and one d_img backward in the step, one crop forward and
+    # one f32 stem in each of the two val sweeps (one val batch of 12).
+    steps = 1
+    argv = ["--synthetic", "--synthetic_size", str(CLI_SYNTHETIC),
+            "--torch_deconv", "1", "--batch_size", str(TRAIN_BATCH),
+            "--num_iterations", str(REF_COUNTERS["t"] + steps),
+            "--checkpoint_every", "1", "--print_every", "1",
+            "--num_val_samples", str(TRAIN_BATCH), "--seed", str(SEED),
+            "--output_dir", run, "--restore_from_checkpoint", "1"]
+    resumed = _stage("resume", stages, {
+        "crop_fwd": 4 * steps + 2, "crop_bwd": steps, "stem": 2,
+        "stem_f32": 2}, lambda: _cli_main(argv), "reference")
+    _, r_meta, log = resumed
+    check(f"restored checkpoint at t={REF_COUNTERS['t']}" in log,
+          "the ported checkpoint was not restored")
+    check(r_meta["counters"]["t"] == REF_COUNTERS["t"] + steps,
+          f"resumed to {r_meta['counters']}")
+    losses = {k: v[-1] for k, v in r_meta["losses"].items()}
+    check(all(np.isfinite(v) for v in losses.values()),
+          f"resumed losses {losses}")
+    result = dict(stages={k: {kk: vv for kk, vv in v.items()
+                              if kk in ("seconds", "launches", "predicted",
+                                        "bytes")}
+                          for k, v in stages.items()},
+                  ported_tensors=n_tensors, stem_max_abs_err=stem_err,
+                  img_std={"float32": f32["img_std"],
+                           "bfloat16": bf16["img_std"]},
+                  resumed_losses=losses, f32_launches=f32["launches"],
+                  bf16_launches=bf16["launches"])
+    say("reference", **result)
+    return result
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its printed lines kept off this script's
+    output."""
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
 
 
 def train_card_vs_cpu() -> None:
@@ -2176,12 +2380,15 @@ def generator_f64() -> None:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only",
-                        choices=("stem", "compositor", "crop", "train"),
+                        choices=("stem", "compositor", "crop", "train", "ddp"),
                         help="build and check one kernel alone (its phase "
                         "and its device times), or run the train step's "
-                        "phase 8 alone; no result line")
+                        "phase 8 or the ddp phase alone; no result line")
     parser.add_argument("--ddp-step", metavar="DIR",
                         help="run as a rank of the DDP step phase")
+    parser.add_argument("--ddp-deterministic", action="store_true",
+                        help="with --ddp-step: on cuDNN's deterministic "
+                        "algorithms")
     parser.add_argument("--ddp-cli", metavar="ARGV_JSON",
                         help="run as a rank of the DDP train CLI phase")
     args = parser.parse_args(argv)
@@ -2193,7 +2400,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.ddp_step:
-        return ddp_step_rank(args.ddp_step)
+        return ddp_step_rank(args.ddp_step, args.ddp_deterministic)
     if args.ddp_cli:
         return ddp_cli_rank(args.ddp_cli)
     name = torch.cuda.get_device_name(0)
@@ -2204,7 +2411,7 @@ def main(argv=None) -> int:
     print(card, flush=True)
 
     t = time.perf_counter()
-    built = _cuda.build(_cuda.KERNELS if not args.only else
+    built = _cuda.build(_cuda.KERNELS if args.only in (None, "ddp") else
                         ["crop"] if args.only == "train" else [args.only])
     say("build", seconds=time.perf_counter() - t,
         per_kernel={k: v["seconds"] for k, v in built.items()})
@@ -2213,6 +2420,13 @@ def main(argv=None) -> int:
     if args.only == "train":
         with torch_default_tf32():
             train_on_card()
+        return 0
+    if args.only == "ddp":
+        work = tempfile.mkdtemp(prefix="sg_ddp_")
+        try:
+            ddp_phase(work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
         return 0
     if args.only:
         check_phase, times, kcfg = {
@@ -2275,20 +2489,21 @@ def main(argv=None) -> int:
     # Then the COCO readers and data parallelism, each in a work directory
     # of its own (their checkpoints take 2.2 GiB a slot).
     phase_s = {}
-    for name_, phase in (("coco", coco_phase), ("ddp", ddp_phase)):
+    for name_, phase in (("reference", reference_phase),
+                         ("coco", coco_phase), ("ddp", ddp_phase)):
         work = tempfile.mkdtemp(prefix=f"sg_{name_}_")
         t = time.perf_counter()
         try:
             phase_s[name_] = (phase(work), time.perf_counter() - t)
         finally:
             shutil.rmtree(work, ignore_errors=True)
-    coco, ddp = phase_s["coco"][0], phase_s["ddp"][0]
+    ref, coco, ddp = (phase_s[k][0] for k in ("reference", "coco", "ddp"))
     # A rank's launches in the DDP train CLI's first run (rank 0).
     rank_launches = ddp["cli"]["launches"][0]
 
-    # Each kernel's launches in the train CLI phase (the stem's: the f32
-    # kernel of the val sweeps), beside the main path's count.
-    cli_launches = dict(cli["launches"], stem=cli["f32_stem_launches"])
+    # Each kernel's launches in the train CLI phase (the bf16 stem's: none;
+    # the val sweeps run the f32 one), beside the main path's count.
+    cli_launches = dict(cli["launches"], stem=0)
 
     def row(name, src, replaces, launches, r):
         return dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -2305,6 +2520,17 @@ def main(argv=None) -> int:
         row("stem", "scene_generation_tpu_torch/csrc/stem.cu",
             "scene_generation_tpu/ops/pallas/stem.py:47",
             serve_launches["stem_tc"], stem_rows[torch.bfloat16]),
+        # The f32 stem (3xTF32): launches serving the ported reference
+        # checkpoint at f32; its bound is three TF32 products at the TF32
+        # tensor-core rate, cuda_core_bound_ms one f32 product on the CUDA
+        # cores.
+        dict(row("stem_f32", "scene_generation_tpu_torch/csrc/stem.cu",
+                 "scene_generation_tpu/ops/pallas/stem.py:47",
+                 ref["f32_launches"].get("stem_f32", 0),
+                 stem_rows[torch.float32]),
+             train_cli_launches=cli["f32_stem_launches"],
+             cuda_core_bound_ms=stem_rows[torch.float32][
+                 "cuda_core_bound_ms"]),
         row("compositor", "scene_generation_tpu_torch/csrc/compositor.cu",
             "scene_generation_tpu/ops/pallas/compositor.py:48",
             dense_launches["compositor"], comp_rows[torch.bfloat16]),
@@ -2353,6 +2579,8 @@ def main(argv=None) -> int:
         train_cli_ms_per_step=cli["timing_ms_per_step"], eval_seconds=eval_s,
         eval_stage_seconds={k: v["seconds"] for k, v in evals.items()},
         phase_seconds={k: v[1] for k, v in phase_s.items()},
+        reference_stage_seconds={k: v["seconds"]
+                                 for k, v in ref["stages"].items()},
         coco_stage_seconds={k: v["seconds"]
                             for k, v in coco["stages"].items()},
         coco_host_ms_per_example=coco["host_ms"],

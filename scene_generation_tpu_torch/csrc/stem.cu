@@ -49,146 +49,50 @@
 // registers or the patch matrix rebuilt per dx. mma.sync fed by ldmatrix
 // takes any 16-byte aligned rows, so the shift costs nothing here.
 //
-// float32: stem_f32_kernel, on the CUDA cores, f32 FMAs (kept so that the
-// card-vs-CPU checks in f32 keep their margin; TF32 would spend it). A
-// block stages its (TH+6) x (W+6) x O halo (o-major) and all of g[n] as
-// f32; each warp owns one output row, lane l the pixels l, l+32, l+64,
-// l+96 and a chunk of CC channels, and adds the 49*O taps in a fixed order.
+// float32: stem_f32_kernel, on the tensor cores in 3xTF32. Plain TF32
+// (10 mantissa bits) would spend the f32 card-vs-CPU margins, so every
+// operand is split after its fragment is loaded, hi = x rounded to tf32
+// and lo = x - hi, and each product is a_lo*b_hi + a_hi*b_lo + a_hi*b_hi
+// (the small terms first) by mma.sync m16n8k8 tf32 with f32 sums: about 21
+// bits of each product, f32 sums. So the bound is three TF32 products a
+// multiply-add: 3 x 14.8 GFLOP at the dense TF32 rate, about 0.09 ms at
+// the serving shape. It reuses the bf16 kernel's structure with f32 tiles:
+//   * wE[ty][x][k] (k = dy*O + o, KS = 7*O rounded up to 32 floats a
+//     pixel), gathered straight from w_pad[n] (no o-major copy: in f32 a
+//     pixel's 9 channels are 36 contiguous bytes of one row);
+//   * gB[dx][c][k], c-major: ldmatrix moves 16-bit elements and .trans
+//     would tear the f32 words, so B is stored with k contiguous and read
+//     untransposed, an 8x8 b16 matrix being 8 rows of 4 f32 words, one a
+//     lane, which is the tf32 fragment (k = lane % 4, c = lane / 4);
+//   * the same dx shift (A_dx is wE read dx pixel rows further on) and the
+//     same 16-byte-chunk swizzle (chunk ^ row & 7) of every 128 bytes.
+// f32 doubles every tile, and all of g[n] (7 x 64 x 64 floats, 112 KB at
+// the serving shape) stays resident, so a block owns TH_F32 = 2 output
+// rows at a time (183 KB of shared memory at the serving shape, one block
+// an SM). Blocks are persistent over the row pairs of one image: g[n] is
+// staged once a block, and only wE for each pair. Its 8 warps each own one
+// row of the pair, one half of the pixels in passes of 64 and one half of
+// every 64 channels (MT x NT = 4 x 4 fragments, 64 f32 sums a lane), with
+// each step's fragments loaded during the step before and the three
+// products issued as three rounds over the 16 tiles. The split is integer
+// and f32 arithmetic (cvt.rna.tf32 issues at a fraction of the rate and
+// held the first version to the old kernel's time). No atomics and a fixed
+// order of the three products and of k: a call is bitwise repeatable.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 
 namespace {
 
 constexpr int K = 7;                 // stem kernel size
-constexpr int TH = 8;                // output rows per block
-constexpr int THREADS = TH * 32;     // f32: one warp per row
+constexpr int TH = 8;                // bf16: output rows per block
 
 __host__ __device__ inline int round_up(int v, int m) {
   return (v + m - 1) / m * m;
-}
-
-// --- float32: CUDA cores ----------------------------------------------------
-
-constexpr int PX = 4;                // pixels per lane: x = lane + 32 * i
-
-// Floats of the staged halo, rounded up so that g's tile starts 16-byte
-// aligned and can be read as float4.
-__host__ __device__ inline int halo_floats(int W, int O) {
-  return (O * (TH + K - 1) * (W + K - 1) + 3) / 4 * 4;
-}
-
-template <int CC>
-__global__ void __launch_bounds__(THREADS)
-stem_f32_kernel(const float* __restrict__ w, const float* __restrict__ g,
-                float* __restrict__ out, int H, int W, int O, int C) {
-  extern __shared__ __align__(16) float smem[];
-  const int Hp = H + K - 1, Wp = W + K - 1;
-  const int rows = TH + K - 1;
-  float* ws = smem;                       // [O][rows][Wp]
-  float* gs = smem + halo_floats(W, O);   // [7][7][O][C]
-  const int n = blockIdx.y;
-  const int y0 = blockIdx.x * TH;
-
-  const int g_count = K * K * O * C;
-  const float* gn = g + (size_t)n * g_count;
-  for (int i = threadIdx.x; i < g_count; i += THREADS) gs[i] = gn[i];
-
-  // Rows y0 .. y0+rows-1 of w_pad[n]; a partial last tile reads only the
-  // rows that exist (the rows of its missing outputs are never used).
-  const int avail = min(rows, Hp - y0);
-  const int w_count = avail * Wp * O;
-  const float* wn = w + ((size_t)n * Hp + y0) * Wp * O;
-  for (int i = threadIdx.x; i < w_count; i += THREADS) {
-    const int o = i % O;
-    const int rx = i / O;
-    ws[(o * rows + rx / Wp) * Wp + rx % Wp] = wn[i];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int y = y0 + warp;
-  if (y >= H) return;
-
-  for (int xb = 0; xb < W; xb += 32 * PX) {
-    for (int c0 = 0; c0 < C; c0 += CC) {
-      float acc[PX][CC];
-#pragma unroll
-      for (int i = 0; i < PX; ++i)
-#pragma unroll
-        for (int j = 0; j < CC; ++j) acc[i][j] = 0.f;
-
-      for (int dy = 0; dy < K; ++dy) {
-        for (int o = 0; o < O; ++o) {
-          const float* wrow = ws + (o * rows + warp + dy) * Wp + xb + lane;
-          const float* grow = gs + (dy * K * O + o) * C + c0;
-#pragma unroll
-          for (int dx = 0; dx < K; ++dx) {
-            float wv[PX];
-#pragma unroll
-            for (int i = 0; i < PX; ++i)
-              wv[i] = (xb + lane + 32 * i < W) ? wrow[32 * i + dx] : 0.f;
-            const float* gp = grow + dx * O * C;
-            float gv[CC];
-            if constexpr (CC % 4 == 0) {
-#pragma unroll
-              for (int j = 0; j < CC; j += 4) {
-                const float4 q = *reinterpret_cast<const float4*>(gp + j);
-                gv[j] = q.x; gv[j + 1] = q.y; gv[j + 2] = q.z; gv[j + 3] = q.w;
-              }
-            } else {
-#pragma unroll
-              for (int j = 0; j < CC; ++j) gv[j] = gp[j];
-            }
-#pragma unroll
-            for (int j = 0; j < CC; ++j)
-#pragma unroll
-              for (int i = 0; i < PX; ++i)
-                acc[i][j] = fmaf(wv[i], gv[j], acc[i][j]);
-          }
-        }
-      }
-
-#pragma unroll
-      for (int i = 0; i < PX; ++i) {
-        const int x = xb + lane + 32 * i;
-        if (x >= W) continue;
-        float* op = out + (((size_t)n * H + y) * W + x) * C + c0;
-#pragma unroll
-        for (int j = 0; j < CC; ++j) op[j] = acc[i][j];
-      }
-    }
-  }
-}
-
-template <int CC>
-cudaError_t launch_f32(const void* w, const void* g, void* out, int N, int H,
-                       int W, int O, int C, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)halo_floats(W, O) + (size_t)K * K * O * C);
-  if (smem > INT_MAX) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      stem_f32_kernel<CC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, so no later launch check reports it
-    return err;
-  }
-  dim3 grid((H + TH - 1) / TH, N);
-  stem_f32_kernel<CC><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(w), static_cast<const float*>(g),
-      static_cast<float*>(out), H, W, O, C);
-  return cudaGetLastError();
-}
-
-cudaError_t dispatch_f32(const void* w, const void* g, void* out, int N,
-                         int H, int W, int O, int C, cudaStream_t stream) {
-  if (C % 16 == 0) return launch_f32<16>(w, g, out, N, H, W, O, C, stream);
-  if (C % 4 == 0) return launch_f32<4>(w, g, out, N, H, W, O, C, stream);
-  return launch_f32<1>(w, g, out, N, H, W, O, C, stream);
 }
 
 // --- bfloat16: tensor cores -------------------------------------------------
@@ -262,6 +166,13 @@ __device__ __forceinline__ uint32_t shared_address(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                :: "r"(shared_address(dst)), "l"(src));
+}
+
+// dst = *src (4 bytes) by cp.async, or 0 (no read) when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(shared_address(dst)), "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -564,6 +475,320 @@ cudaError_t launch_tc(const void* w, const void* g, void* out, int N, int H,
   return cudaGetLastError();
 }
 
+// --- float32: tensor cores, 3xTF32 -----------------------------------------
+
+constexpr int TH_F32 = 2;            // output rows per block
+constexpr int F32_WARPS = 8;         // (row, pixel half, channel half)
+constexpr int F32_THREADS = 32 * F32_WARPS;
+
+// Where the f32 kernel's tiles lie in dynamic shared memory, in floats:
+// wE [TH_F32][WX][KS] at 0, gB [7][CS][KS] at gB.
+struct F32Layout {
+  int KO;      // k of the product: 7*O rounded up to 8
+  int KS;      // floats per row of wE and gB: 7*O rounded up to 32
+  int WX;      // pixels of wE: W rounded up to 16, plus 6
+  int CS;      // channel rows of gB: C rounded up to 16
+  FastDiv by_O;
+  size_t gB, total;
+};
+
+inline F32Layout f32_layout(int W, int O, int C) {
+  F32Layout t;
+  t.KO = round_up(K * O, 8);
+  t.KS = round_up(K * O, 32);
+  t.WX = round_up(W, 16) + K - 1;
+  t.CS = round_up(C, 16);
+  t.by_O = fast_div(O);
+  t.gB = (size_t)TH_F32 * t.WX * t.KS;
+  t.total = t.gB + (size_t)K * t.CS * t.KS;
+  return t;
+}
+
+// The 3xTF32 split of a fragment register, in full-rate integer and f32
+// ops (cvt.rna.tf32.f32 issues at a fraction of their rate): hi = x
+// rounded to tf32 (to nearest, ties away: the 13 low mantissa bits
+// rounded off), lo = x - hi, exact in f32 and passed as it is: a tf32
+// operand's low 13 bits are not read, so lo is truncated to tf32, an
+// error of at most 2^-21 of x.
+__device__ __forceinline__ void split_tf32(uint32_t raw, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (raw + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(raw) - __uint_as_float(hi));
+}
+
+// d += a * b: m16n8k8, A row-major tf32, B column-major tf32, f32 sums.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One step's raw fragments (f32 bits): A of MT m-tiles, B of NT n-tiles.
+struct F32Frags {
+  uint32_t a[MT][4];
+  uint32_t b[NT][2];
+};
+
+// Loads step s (dx = s / KQ, k = 8 * (s % KQ)) of a warp's pass at pixels
+// x0 and channels c0 by ldmatrix.x4 from the swizzled tiles; GUARD skips
+// the tiles beyond W or C (a pass without such tiles runs no test).
+template <bool GUARD>
+__device__ __forceinline__ void f32_load(
+    F32Frags& f, int s, int KQ, int x0, int c0, uint32_t a_base,
+    uint32_t b_base, int a_row, int a_kc, int b_row, int b_kc, int KS, int CS,
+    const bool (&m_on)[MT], const bool (&n_on)[NT]) {
+  const int dx = s / KQ, ks = s - dx * KQ;
+  const int xa = x0 + a_row + dx;
+  const uint32_t a_addr = a_base + 4u * (uint32_t)(
+      xa * KS + 4 * swizzle(2 * ks + a_kc, xa));
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    if (!GUARD || m_on[mt]) ldmatrix_x4(f.a[mt], a_addr + 64u * mt * KS);
+#pragma unroll
+  for (int p = 0; p < NT / 2; ++p) {
+    if (GUARD && !n_on[2 * p]) continue;
+    const int c = c0 + 16 * p + b_row;
+    uint32_t q[4];
+    ldmatrix_x4(q, b_base + 4u * (uint32_t)(
+        (dx * CS + c) * KS + 4 * swizzle(2 * ks + b_kc, c)));
+    f.b[2 * p][0] = q[0];
+    f.b[2 * p][1] = q[1];
+    f.b[2 * p + 1][0] = q[2];
+    f.b[2 * p + 1][1] = q[3];
+  }
+}
+
+// acc += A * B of one step in 3xTF32: every fragment split, then the
+// three products as three rounds over the tiles (a_lo*b_hi, a_hi*b_lo,
+// a_hi*b_hi), so that no product waits on the one before it.
+template <bool GUARD>
+__device__ __forceinline__ void f32_products(float (&acc)[MT][NT][4],
+                                             const F32Frags& f,
+                                             const bool (&m_on)[MT],
+                                             const bool (&n_on)[NT]) {
+  uint32_t a_hi[MT][4], a_lo[MT][4], b_hi[NT][2], b_lo[NT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split_tf32(f.a[mt][i], a_hi[mt][i], a_lo[mt][i]);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      split_tf32(f.b[nt][i], b_hi[nt][i], b_lo[nt][i]);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      if (!GUARD || (m_on[mt] && n_on[nt]))
+        mma_tf32(acc[mt][nt], a_lo[mt], b_hi[nt]);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      if (!GUARD || (m_on[mt] && n_on[nt]))
+        mma_tf32(acc[mt][nt], a_hi[mt], b_lo[nt]);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      if (!GUARD || (m_on[mt] && n_on[nt]))
+        mma_tf32(acc[mt][nt], a_hi[mt], b_hi[nt]);
+}
+
+// One pass of a warp: acc = the 64 pixels at x0 times the 32 channels at
+// c0 of the block's output row, over every step (dx, 8 k). Each step's
+// fragments are loaded during the step before (two register sets, so the
+// loop runs two steps a turn).
+template <bool GUARD>
+__device__ __forceinline__ void f32_pass(
+    float (&acc)[MT][NT][4], int KQ, int x0, int c0, uint32_t a_base,
+    uint32_t b_base, int a_row, int a_kc, int b_row, int b_kc, int KS,
+    int CS, const bool (&m_on)[MT], const bool (&n_on)[NT]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  const int steps = K * KQ;
+  F32Frags f0, f1;
+  f32_load<GUARD>(f0, 0, KQ, x0, c0, a_base, b_base, a_row, a_kc, b_row,
+                  b_kc, KS, CS, m_on, n_on);
+  for (int s = 0; s < steps; s += 2) {
+    if (s + 1 < steps)
+      f32_load<GUARD>(f1, s + 1, KQ, x0, c0, a_base, b_base, a_row, a_kc,
+                      b_row, b_kc, KS, CS, m_on, n_on);
+    f32_products<GUARD>(acc, f0, m_on, n_on);
+    if (s + 1 >= steps) break;
+    if (s + 2 < steps)
+      f32_load<GUARD>(f0, s + 2, KQ, x0, c0, a_base, b_base, a_row, a_kc,
+                      b_row, b_kc, KS, CS, m_on, n_on);
+    f32_products<GUARD>(acc, f1, m_on, n_on);
+  }
+}
+
+__global__ void __launch_bounds__(F32_THREADS, 1)
+stem_f32_kernel(const float* __restrict__ w, const float* __restrict__ g,
+                float* __restrict__ out, int H, int W, int O, int C,
+                F32Layout L) {
+  extern __shared__ __align__(128) float f32_smem[];
+  float* wE = f32_smem;
+  float* gB = f32_smem + L.gB;
+  const int Hp = H + K - 1, Wp = W + K - 1;
+  const int n = blockIdx.y;
+  const int KS = L.KS, WX = L.WX, CS = L.CS, KR = K * O;
+  const int KC = KS / 4;                  // 16-byte chunks of a row
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // 1. Once a block: gB[dx][c][k] = g[n, dy, dx, o, c] (k = dy*O + o), zero
+  // for k >= 7*O or c >= C; a thread a 16-byte chunk (4 k), lanes over
+  // consecutive c: coalesced loads, and the swizzle keeps the stores
+  // conflict-free. Every element is a 4-byte cp.async (zero-filled where
+  // there is no source), so all of a thread's loads are in flight at once.
+  const float* gn = g + (size_t)n * K * K * O * C;
+  const int g_chunks = K * KC * CS;
+  for (int i = threadIdx.x; i < g_chunks; i += F32_THREADS) {
+    const int c = i % CS, r = i / CS;     // r = dx*KC + j
+    const int dx = r / KC, j = r - dx * KC;
+    float* d = gB + (dx * CS + c) * KS + 4 * swizzle(j, c);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = 4 * j + q;
+      const int dy = k / L.by_O, o = k - dy * O;
+      const bool real = k < KR && c < C;
+      cp_async4(d + q, real ? gn + ((dy * K + dx) * O + o) * C + c : gn,
+                real);
+    }
+  }
+
+  // Warp (ty, xq, cq) owns output row y0+ty of each pair, the passes of 64
+  // pixels at 64*xq + 128*i and, of each 64 channels, the 32 at 32*cq.
+  const int ty = warp >> 2, xq = (warp >> 1) & 1, cq = warp & 1;
+  const uint32_t a_base = shared_address(wE + ty * WX * KS);
+  const uint32_t b_base = shared_address(gB);
+  // ldmatrix.x4 rows. A: lanes 0-15 give pixels 0-15 at k 0-3, lanes 16-31
+  // the same pixels at k 4-7 (matrices: a0, a1, a2, a3 of the tf32
+  // fragment). B: lanes 0-7 give channels 0-7 at k 0-3, 8-15 the same at
+  // k 4-7, 16-31 channels 8-15 likewise (b0, b1 of two n-tiles).
+  const int a_row = lane & 15, a_kc = lane >> 4;
+  const int b_row = (lane & 7) + 8 * (lane >> 4), b_kc = (lane >> 3) & 1;
+  const int quad = lane >> 2, t = lane & 3;
+  const int KQ = L.KO / 8;                // steps of 8 k
+  const int pairs = (H + TH_F32 - 1) / TH_F32;
+
+  // The block's pairs of output rows of image n: blockIdx.x, then every
+  // gridDim.x-th, so that g[n] is staged once for all of them.
+  for (int pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
+    const int y0 = pair * TH_F32;
+    const int rows = min(TH_F32, H - y0);
+
+    // 2. wE[ty][x][k] = w_pad[n, y0+ty+dy, x, o] for k < 7*O and x < W+6,
+    // zero elsewhere; lanes over consecutive pixels, 4-byte cp.asyncs as
+    // above. The previous pair's products are done with wE (the barrier at
+    // the loop's end); the first pair's wait also lands gB.
+    const float* wn = w + ((size_t)n * Hp + y0) * Wp * O;
+    const int w_chunks = rows * KC * WX;
+    for (int i = threadIdx.x; i < w_chunks; i += F32_THREADS) {
+      const int x = i % WX, r = i / WX;   // r = ty*KC + j
+      const int sty = r / KC, j = r - sty * KC;
+      float* d = wE + (sty * WX + x) * KS + 4 * swizzle(j, x);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = 4 * j + q;
+        const int dy = k / L.by_O, o = k - dy * O;
+        const bool real = k < KR && x < Wp;
+        cp_async4(d + q, real ? wn + ((sty + dy) * Wp + x) * O + o : wn,
+                  real);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    if (ty < rows) {
+      float* orow = out + ((size_t)n * H + y0 + ty) * W * C;
+      for (int x0 = 64 * xq; x0 < W; x0 += 128) {
+        for (int c0 = 32 * cq; c0 < C; c0 += 64) {
+          bool m_on[MT], n_on[NT];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) m_on[mt] = x0 + 16 * mt < W;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) n_on[nt] = c0 + 8 * nt < C;
+
+          float acc[MT][NT][4];
+          bool full = true;
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) full = full && m_on[mt];
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) full = full && n_on[nt];
+          if (full)
+            f32_pass<false>(acc, KQ, x0, c0, a_base, b_base, a_row, a_kc,
+                            b_row, b_kc, KS, CS, m_on, n_on);
+          else
+            f32_pass<true>(acc, KQ, x0, c0, a_base, b_base, a_row, a_kc,
+                           b_row, b_kc, KS, CS, m_on, n_on);
+
+          // Lane (quad, t) holds pixels quad and quad+8 of each m-tile at
+          // channels 2t, 2t+1 of each n-tile: 8-byte stores when C is even.
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int x = x0 + 16 * mt + quad + 8 * h;
+              if (x >= W) continue;
+              float* op = orow + (size_t)x * C;
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) {
+                const int c = c0 + 8 * nt + 2 * t;
+                const float v0 = acc[mt][nt][2 * h];
+                const float v1 = acc[mt][nt][2 * h + 1];
+                if ((C & 1) == 0) {
+                  if (c < C) *reinterpret_cast<float2*>(op + c) =
+                      make_float2(v0, v1);
+                } else {
+                  if (c < C) op[c] = v0;
+                  if (c + 1 < C) op[c + 1] = v1;
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+cudaError_t launch_f32(const void* w, const void* g, void* out, int N, int H,
+                       int W, int O, int C, cudaStream_t stream) {
+  const F32Layout L = f32_layout(W, O, C);
+  const size_t smem = sizeof(float) * L.total;
+  if (smem > INT_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      stem_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so no later launch check reports it
+    return err;
+  }
+  // One block an SM (its shared memory), all blocks in one wave where the
+  // images allow: an image's row pairs shared among sms / N blocks.
+  int device = 0, sms = 1;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int pairs = (H + TH_F32 - 1) / TH_F32;
+  dim3 grid(std::max(1, std::min(pairs, sms / N)), N);
+  stem_f32_kernel<<<grid, F32_THREADS, smem, stream>>>(
+      static_cast<const float*>(w), static_cast<const float*>(g),
+      static_cast<float*>(out), H, W, O, C, L);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -573,7 +798,7 @@ extern "C" {
 int sg_stem(const void* w, const void* g, void* out, int N, int H, int W,
             int O, int C, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_f32(w, g, out, N, H, W, O, C, s);
+  if (dtype == 0) return launch_f32(w, g, out, N, H, W, O, C, s);
   if (dtype == 1) return launch_tc(w, g, out, N, H, W, O, C, s);
   return cudaErrorInvalidValue;
 }

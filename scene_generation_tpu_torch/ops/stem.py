@@ -6,9 +6,11 @@
 It replaces the TPU kernel ``stem_pallas`` of the JAX package
 (``ops/pallas/stem.py``). ``stem`` launches the kernel for a CUDA tensor and
 runs ``stem_plain`` for a CPU tensor; it never falls back from one to the
-other. The dtype picks the kernel: bfloat16 (serving) runs on the tensor
-cores (``mma.sync``; counted in ``LAUNCHES["stem_tc"]`` too), float32 on
-the CUDA cores. ``LAUNCHES["stem"]`` counts every launch. The kernels are
+other. The dtype picks the kernel, both on the tensor cores
+(``mma.sync``): bfloat16 (serving; counted in ``LAUNCHES["stem_tc"]``
+too) and float32 in 3xTF32 (each operand split into a TF32 high and low
+part, three products summed in f32; counted in ``LAUNCHES["stem_f32"]``
+too). ``LAUNCHES["stem"]`` counts every launch. The kernels are
 forward-only (test mode, serving): the wrapper raises rather than detach a
 graph. Training runs ``stem_patches``, the JAX
 package's differentiable ``patches`` form, on every device.
@@ -77,8 +79,8 @@ def _launch(weights: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     # launch and raised here.
     _cuda.check(lib, rc, f"stem kernel at W={w}, O={o}, C={c}")
     _cuda.LAUNCHES["stem"] += 1
-    if weights.dtype == torch.bfloat16:
-        _cuda.LAUNCHES["stem_tc"] += 1
+    _cuda.LAUNCHES["stem_tc" if weights.dtype == torch.bfloat16
+                   else "stem_f32"] += 1
     return out
 
 

@@ -60,6 +60,17 @@ class Collectives:
         """Sum ``t`` over the ranks, in place; returns ``t``."""
         return t
 
+    def all_reduce_async_(self, t: torch.Tensor):
+        """Start the in-place sum of ``t`` over the ranks; returns a handle
+        whose ``wait()`` ends it. Here the sum is made at once."""
+        self.all_reduce_(t)
+        return _Done()
+
+
+class _Done:
+    def wait(self) -> None:
+        pass
+
 
 SINGLE = Collectives()
 
@@ -98,6 +109,15 @@ class TorchDistributed(Collectives):
         self.seconds += time.perf_counter() - start
         self.calls += 1
         return t
+
+    def all_reduce_async_(self, t: torch.Tensor):
+        """A host tensor's sum over gloo without waiting for it (the
+        returned work's ``wait()`` does); a device tensor's as
+        ``all_reduce_``."""
+        if t.is_cuda:
+            return super().all_reduce_async_(t)
+        self.calls += 1
+        return dist.all_reduce(t, group=self.host_group, async_op=True)
 
 
 def init_process_group(device: Optional[str] = None
@@ -173,11 +193,38 @@ def reduce_grads(comm: Collectives, grads: Sequence[torch.Tensor]
                                                      for g in grads]), grads)]
 
 
-def any_rank(comm: Collectives, flag: bool) -> bool:
-    """True on every rank when ``flag`` is true on any (a stop that every
-    rank takes at the same step, so none waits alone in a collective).
-    The flag is reduced on the host: the device is not waited for."""
-    return bool(comm.all_reduce_(torch.tensor([float(flag)]))[0] > 0)
+class StopAgreement:
+    """A stop that every rank takes at the same step, without holding the
+    host at every step. ``poll(flag)`` once a step, before it: with one
+    rank it returns ``flag`` (stop at this step, as the JAX CLI does);
+    with several it starts a non-blocking sum of this step's flags on the
+    host and returns the sum started one step earlier (true on every rank
+    when any rank's flag was), so every rank stops one step after the
+    flag, at the same step. ``close()`` ends the sum still in flight, on
+    every rank at the same poll."""
+
+    def __init__(self, comm: Collectives):
+        self.comm = comm
+        self._pending = None
+
+    def poll(self, flag: bool) -> bool:
+        if self.comm.world_size == 1:
+            return flag
+        agreed = self._finish()
+        t = torch.tensor([float(flag)])
+        self._pending = (self.comm.all_reduce_async_(t), t)
+        return agreed
+
+    def _finish(self) -> bool:
+        if self._pending is None:
+            return False
+        work, t = self._pending
+        self._pending = None
+        work.wait()
+        return bool(t[0] > 0)
+
+    def close(self) -> None:
+        self._finish()
 
 
 def verify_replicated(comm: Collectives, state) -> None:

@@ -11,6 +11,7 @@ given.
     create_attributes_file  per-class size / location histograms
     eval_run              all of the above, one stage after another
     gui_server            the interactive GUI's HTTP backend
+    port_reference_checkpoint  the paper's own .pt as the port's checkpoint
 
     make_fake_coco_dir    a fake COCO directory, as a COCO download lays out
 

@@ -444,10 +444,12 @@ def _train(a: argparse.Namespace, dev: torch.device,
     else:
         stream = epoch_stream(epoch + 1, 0)
     prefetched = device_prefetch(stream, dev)
+    # Every rank stops at the same step: agreed one step late on the host,
+    # so that no step waits for the other ranks (one rank: this step).
+    stop_agreement = data_parallel.StopAgreement(comm)
     try:
         for batch in prefetched:
-            # Every rank stops at the same step (agreed on the host).
-            stop = data_parallel.any_rank(comm, stop_requested["flag"])
+            stop = stop_agreement.poll(stop_requested["flag"])
             if t >= cfg.train.num_iterations or stop:
                 break
             t += 1
@@ -549,6 +551,7 @@ def _train(a: argparse.Namespace, dev: torch.device,
                     writer.add_scalar("checkpoint/val_sg_iou", va[0], t)
                 print(f"saved checkpoint (best={is_best})")
     finally:
+        stop_agreement.close()
         prefetched.close()
         stream.close()
         train_loader.close()

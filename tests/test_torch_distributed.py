@@ -336,6 +336,30 @@ def test_two_rank_step_equals_the_joined_step(monkeypatch):
                 assert close(a, b), f"{name}.{bn}"
 
 
+@pytest.mark.parametrize("world", [1, 2])
+def test_stop_is_agreed_at_the_same_step_one_step_late(world):
+    """One rank raises its flag at poll 3: a single process stops at that
+    poll (the JAX CLI's rule); two ranks both stop at poll 4, and close()
+    ends the sum still in flight on both."""
+    def rank(comm):
+        agreement = data_parallel.StopAgreement(comm)
+        polls = []
+        for i in range(8):
+            stop = agreement.poll(comm.rank == world - 1 and i >= 3)
+            polls.append(stop)
+            if stop:
+                break
+        agreement.close()
+        return polls
+
+    if world == 1:
+        got = [rank(data_parallel.SINGLE)]
+    else:
+        got = run_ranks(rank, world)
+    want = [False] * (3 if world == 1 else 4) + [True]
+    assert got == [want] * world
+
+
 def test_replicas_that_differ_are_refused():
     cfg = _tiny_cfg()
     states = [create_train_state(cfg, "cpu", seed=s, load_vgg=False)

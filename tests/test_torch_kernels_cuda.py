@@ -54,15 +54,40 @@ def test_stem_kernel_matches_plain(device, dtype, o, c, h):
     got = stem(w_t, g_t).float()
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["stem"] == before.get("stem", 0) + 1
-    # bf16 runs the tensor-core kernel, f32 the CUDA-core one.
+    # bf16 runs the bf16 tensor-core kernel, f32 the 3xTF32 one.
     assert _cuda.LAUNCHES["stem_tc"] == before.get("stem_tc", 0) + (
         dtype == torch.bfloat16)
+    assert _cuda.LAUNCHES["stem_f32"] == before.get("stem_f32", 0) + (
+        dtype == torch.float32)
     want = stem_plain(w_t.float(), g_t.float())
     # f32: sums of 49*O products in another order; bf16: the output's
     # rounding (2^-8 relative) on top.
     tol = 1e-3 if dtype == torch.float32 else 2 ** -7 * float(
         want.abs().max())
     assert float((got - want).abs().max()) <= tol
+
+
+# The serving shape, and a width that is not a multiple of a warp's 64
+# pixels (nor of an m-tile's 16) with channels that fill no whole pass.
+@pytest.mark.parametrize("n,h,w,o,c", [(16, 128, 128, 9, 64),
+                                       (2, 20, 77, 9, 40)])
+def test_stem_f32_kernel_matches_plain_and_repeats(device, n, h, w, o, c):
+    """The 3xTF32 kernel within phase 3's 1e-4 of the plain f32 version
+    (weights in [0, 1] as claimed masks are, taps N(0, 0.1^2): outputs of
+    order 1), and bitwise equal to itself."""
+    rng = np.random.RandomState(3)
+    w_t = torch.from_numpy(rng.rand(n, h + 6, w + 6, o).astype(
+        np.float32)).to(device)
+    g_t = torch.from_numpy(0.1 * rng.randn(n, 7, 7, o, c).astype(
+        np.float32)).to(device)
+    before = _cuda.LAUNCHES["stem_f32"]
+    got = stem(w_t, g_t)
+    again = stem(w_t, g_t)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["stem_f32"] == before + 2
+    assert torch.equal(got, again)
+    want = stem_plain(w_t, g_t)
+    assert float((got - want).abs().max()) <= 1e-4
 
 
 def _bf16_stem_case(device, n, h, w, o, c, scale=1.0, seed=0):

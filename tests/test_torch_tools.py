@@ -451,7 +451,7 @@ def test_eval_run_end_to_end(run, tmp_path, capsys):
 @pytest.mark.parametrize("tool", [encode_features, sample_images,
                                   train_accuracy_net, create_attributes_file,
                                   compute_diversity])
-def test_coco_mode_raises_until_its_readers_are_ported(tool, run):
+def test_tools_read_coco_dir(tool, run):
     """The readers are ported: without ``--synthetic`` each tool reads
     ``--coco_dir`` (here the default, which does not exist) and raises
     the dataset's error (tests/test_torch_coco_cli.py runs them on one)."""

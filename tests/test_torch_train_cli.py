@@ -66,7 +66,7 @@ def test_config_equals_jax_config_from_args(argv):
         "test_stem_backend"}
 
 
-def test_unported_flags_raise(monkeypatch):
+def test_only_scan_blocks_is_refused(monkeypatch):
     """``--scan_blocks 1`` is the one flag the port refuses; the COCO flags
     read their directory (tests/test_torch_coco_cli.py trains on one) and
     ``--distributed`` needs torchrun's environment
