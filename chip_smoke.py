@@ -404,7 +404,7 @@ def crop_case(cfg: Config, hh: int, dtype, seed=6, n=TRAIN_BATCH):
 def grid_sample_inputs(imgs, boxes, u):
     """``F.grid_sample``'s form of the same crop (bilinear, zero padding,
     align_corners=True): each image repeated once per object, a grid per
-    object, the gradient channels-first."""
+    object in the images' dtype, the gradient channels-first."""
     n, h, w, c = imgs.shape
     o, hh, ww = u.shape[1:4]
     x0, y0, x1, y1 = boxes.unbind(-1)
@@ -416,7 +416,10 @@ def grid_sample_inputs(imgs, boxes, u):
                                                gy[:, :, :, None]), -1)
     inp = imgs.permute(0, 3, 1, 2).repeat_interleave(o, 0).contiguous()
     grad = u.permute(0, 1, 4, 2, 3).reshape(n * o, c, hh, ww).contiguous()
-    return inp, grid.reshape(n * o, hh, ww, 2).contiguous(), grad
+    # grid_sample takes a grid of its input's dtype: in bf16 the sample
+    # positions round to bf16 too.
+    return (inp, grid.reshape(n * o, hh, ww, 2).to(imgs.dtype).contiguous(),
+            grad)
 
 
 D_IMG_ONLY = (True, False, False)        # the train path's crop backward
@@ -501,8 +504,8 @@ def check_crop(cfg: Config) -> dict:
     bitwise equal, and each gradient bitwise the same in every set that
     holds it. Times by CUDA events against the plain versions, the bound
     (operations counted from the hats' nonzeros; the dense one beside it)
-    and, in f32, the library calls (``crop_library_calls``). Their device
-    times come last (``crop_device_times``)."""
+    and the library calls (``crop_library_calls``; in bf16 the forward's
+    alone). Their device times come last (``crop_device_times``)."""
     rows = {}
     names = ("d_img", "d_ry", "d_rx")
     for hh in (64, 32):
@@ -552,14 +555,20 @@ def check_crop(cfg: Config) -> dict:
                                   nbytes(imgs, ry, rx, u, *[
                                       g for g in grads[nd] if g is not None]),
                                   dtype)
-            lib = {}
-            lib_note = "bf16 not timed"
-            if dtype == torch.float32:
-                calls = crop_library_calls(imgs, boxes, u)
-                n, h, w, c = imgs.shape
-                o, ww = ry.shape[1], rx.shape[2]
-                lf = calls["crop_fwd"]().reshape(n, o, c, hh, ww).permute(
-                    0, 1, 3, 4, 2)
+            calls = crop_library_calls(imgs, boxes, u)
+            n, h, w, c = imgs.shape
+            o, ww = ry.shape[1], rx.shape[2]
+            lf = calls["crop_fwd"]().reshape(n, o, c, hh, ww).permute(
+                0, 1, 3, 4, 2)
+            if dtype == torch.bfloat16:
+                # The forward's yardstick alone, on a bf16 grid (sample
+                # positions rounded to bf16: not the same function to the
+                # last bit, so timed without an agreement gate).
+                lib_note = {"max_abs_err_fwd": float(
+                    (lf.float() - want.float()).abs().max()), "grid": "bf16"}
+                lib = {"crop_fwd": cuda_ms(calls["crop_fwd"])}
+            else:
+                lib = {}
                 lb = calls["crop_bwd"]()[0].reshape(n, o, c, h, w).sum(
                     1).permute(0, 2, 3, 1)
                 lib_err = (float((lf - want).abs().max()),
@@ -612,7 +621,8 @@ def check_crop_wide(cfg: Config, rows: dict) -> None:
     that upsample every box, so each crop row's span is 1-2 image rows.
     f32 (as the accuracy path runs it: generated images are f32) and
     bf16, against the plain version; the bound (bytes); ``F.grid_sample``
-    in f32. Forward only: nothing differentiates through these crops."""
+    in both (bf16 on a bf16 grid). Forward only: nothing differentiates
+    through these crops."""
     for dtype in (torch.float32, torch.bfloat16):
         imgs, ry, rx, u, boxes = crop_case(cfg, ACC_CROP, dtype, n=ACC_BATCH)
         got = crop_fwd(imgs, ry, rx)
@@ -630,17 +640,20 @@ def check_crop_wide(cfg: Config, rows: dict) -> None:
         b = bound(*crop_work(imgs, ry, rx, u, (got,)), dtype)
         dense = bound(dense_crop_flops(imgs, ry, rx),
                       nbytes(imgs, ry, rx, got), dtype)
-        lib, lib_note = None, "bf16 not timed"
+        lib = None
+        call = crop_library_calls(imgs, boxes, u)["crop_fwd"]
+        n, h, w, c = imgs.shape
+        lf = call().reshape(n, -1, c, ACC_CROP, ACC_CROP).permute(
+            0, 1, 3, 4, 2)
+        lib_err = float((lf.float() - want.float()).abs().max())
         if dtype == torch.float32:
-            call = crop_library_calls(imgs, boxes, u)["crop_fwd"]
-            n, h, w, c = imgs.shape
-            lf = call().reshape(n, -1, c, ACC_CROP, ACC_CROP).permute(
-                0, 1, 3, 4, 2)
-            lib_err = float((lf - want).abs().max())
             agree = lib_err <= 1e-4 * float(want.abs().max())
             lib_note = {"max_abs_err_fwd": lib_err, "agrees": agree}
             if agree:
                 lib = cuda_ms(call)
+        else:                  # a bf16 grid: timed without a gate
+            lib_note = {"max_abs_err_fwd": lib_err, "grid": "bf16"}
+            lib = cuda_ms(call)
         rows[("crop_fwd", ACC_CROP, dtype)] = dict(
             max_abs_err=err, tol=tol,
             ms=cuda_ms(lambda: crop_fwd(imgs, ry, rx)),
@@ -679,15 +692,14 @@ def crop_device_times(cfg: Config, rows: dict) -> None:
             calls = {"crop_fwd": lambda: crop_fwd(imgs, ry, rx)}
             for name, nd, _ in CROP_BWD_ROWS:
                 calls[name] = lambda nd=nd: crop_bwd(imgs, ry, rx, u, nd)
-            timed_lib = rows[("crop_fwd", hh, dtype)]["library_ms"] is not None
-            libs = crop_library_calls(imgs, boxes, u) if timed_lib else {}
+            libs = crop_library_calls(imgs, boxes, u)
             for name, fn in calls.items():
                 dev = device_kernels_ms(fn)
                 row = rows[(name, hh, dtype)]
                 row.update(device_ms=device_total_ms(dev), device_kernels=dev,
                            library_device_ms=device_total_ms(
                                device_kernels_ms(libs[name]))
-                           if name in libs else None)
+                           if row["library_ms"] is not None else None)
                 say(f"kernel {name} device", hh=hh, dtype=str(dtype),
                     device_ms=row["device_ms"], device_kernels=dev,
                     library_device_ms=row["library_device_ms"],

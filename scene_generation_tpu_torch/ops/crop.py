@@ -13,12 +13,14 @@ tensors they run ``crop_fwd_plain`` and ``crop_bwd_plain``; neither falls
 back from one to the other. The interpolation matrices are built in plain
 torch by ``crop_matrices``, so gradients reach the boxes through autograd.
 
-The backward computes only the gradients its inputs need: d_img by the
-banded gather kernel (counted in ``LAUNCHES["crop_bwd"]``), d_ry and d_rx,
-the box gradients, by one banded kernel launched only when one of them is
-asked for (``LAUNCHES["crop_bwd_boxes"]``). The kernels touch only
-the hats' nonzeros, so unlike the dense plain versions they do not spread
-a NaN or Inf of an image into crops that do not sample it.
+The forward is one kernel (a block a band of crop rows, the spans found
+in-block). The backward computes only the gradients its inputs need:
+d_img by a span pass and a gather (counted once in
+``LAUNCHES["crop_bwd"]``), d_ry and d_rx, the box gradients, by one banded
+kernel launched only when one of them is asked for
+(``LAUNCHES["crop_bwd_boxes"]``). The kernels touch only the hats'
+nonzeros, so unlike the dense plain versions they do not spread a NaN or
+Inf of an image into crops that do not sample it.
 """
 from __future__ import annotations
 
@@ -126,17 +128,12 @@ def _entry(symbol: str, n_ptrs: int):
 def _launch_fwd(imgs, ry, rx) -> torch.Tensor:
     _check((imgs, ry, rx), ("imgs", "ry", "rx"))
     n, h, w, c, o, hh, ww = _shapes(imgs, ry, rx)
-    lib, fn = _entry("sg_crop_fwd", 5)
+    lib, fn = _entry("sg_crop_fwd", 4)
     out = torch.empty((n, o, hh, ww, c), dtype=imgs.dtype, device=imgs.device)
-    # The row spans of ry_o and rx_o: (first, last) nonzero column of each
-    # of the HH + WW rows.
-    spans = torch.empty((n, o, hh + ww, 2), dtype=torch.int32,
-                        device=imgs.device)
     stream = torch.cuda.current_stream(imgs.device).cuda_stream
     rc = fn(imgs.data_ptr(), ry.data_ptr(), rx.data_ptr(), out.data_ptr(),
-            spans.data_ptr(), n, h, w, c, o, hh, ww, _DTYPE_CODES[imgs.dtype],
-            stream)
-    _cuda.check(lib, rc, f"crop forward kernels at W={w}, C={c}, WW={ww}")
+            n, h, w, c, o, hh, ww, _DTYPE_CODES[imgs.dtype], stream)
+    _cuda.check(lib, rc, f"crop forward kernel at W={w}, C={c}, WW={ww}")
     _cuda.LAUNCHES["crop_fwd"] += 1
     return out
 
@@ -153,9 +150,9 @@ def _launch_bwd(imgs, ry, rx, u, needs: Needs) -> Grads:
     if needs[0]:
         lib, fn = _entry("sg_crop_bwd_img", 5)
         d_img = torch.empty_like(imgs)
-        # The column spans of ry_o and rx_o: (first, last) nonzero row of
-        # each of the H + W columns.
-        spans = torch.empty((n, o, h + w, 2), dtype=torch.int32,
+        # Each column's span over the rows of ry_o and rx_o and its first
+        # two taps: N*O*(H+W) entries of 16 bytes.
+        spans = torch.empty((n, o, h + w, 4), dtype=torch.int32,
                             device=imgs.device)
         rc = fn(ry.data_ptr(), rx.data_ptr(), u.data_ptr(), d_img.data_ptr(),
                 spans.data_ptr(), n, h, w, c, o, hh, ww, dtype, stream)

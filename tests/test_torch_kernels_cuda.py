@@ -435,6 +435,51 @@ def test_crop_d_img_alone_is_bitwise_the_full_backward(device, dtype):
     assert torch.equal(boxes_only[1], full[1])
 
 
+def _assert_crop_bitwise(imgs, ry, rx, u):
+    """The forward and d_img equal the plain versions bit for bit (f32:
+    both sum the same products in the same order, the hats' zeros aside),
+    and two runs of each equal each other."""
+    got, again = crop_fwd(imgs, ry, rx), crop_fwd(imgs, ry, rx)
+    d_img = crop_bwd(imgs, ry, rx, u, needs=(True, False, False))[0]
+    d_again = crop_bwd(imgs, ry, rx, u, needs=(True, False, False))[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(d_img, d_again)
+    assert torch.equal(got, crop_fwd_plain(imgs, ry, rx))
+    assert torch.equal(d_img, crop_bwd_plain(imgs, ry, rx, u,
+                                             (True, False, False))[0])
+
+
+def test_crop_kernels_on_a_band_that_samples_no_image_row(device):
+    """Boxes partly out of frame in y only, and one wholly out of it in y:
+    the forward's bands of crop rows (13 bands of 5 rows at 18 crops of 64
+    px) include bands whose rows sample no image row, and d_img's blocks of
+    image rows include ones that no crop row samples. Their outputs are the
+    plain version's zeros, bit for bit."""
+    rng = np.random.RandomState(11)
+    boxes = np.tile(_edge_boxes(9), (2, 1, 1))
+    boxes[0, 0] = [0.1, 0.6, 0.5, 1.6]        # the lower rows out of frame
+    boxes[0, 1] = [0.3, -0.9, 0.8, 0.3]       # the upper rows out of frame
+    boxes[1, 0] = [0.2, 1.2, 0.7, 1.8]        # every row out of frame
+    imgs = torch.from_numpy(rng.uniform(-1, 1, (2, 128, 128, 3)).astype(
+        np.float32)).to(device)
+    ry, rx = crop_matrices(torch.from_numpy(boxes).to(device), 64, 64, 128,
+                           128)
+    assert float(ry[1, 0].abs().sum()) == 0.0
+    assert float(ry[0, 0, 40:].abs().sum()) == 0.0     # whole bands empty
+    u = torch.from_numpy(rng.randn(2, 9, 64, 64, 3).astype(np.float32)).to(
+        device)
+    _assert_crop_bitwise(imgs, ry.contiguous(), rx.contiguous(), u)
+
+
+def test_crop_kernels_at_a_height_no_band_divides(device):
+    """HH = WW = 37 on 45 x 50 images: the forward's bands of crop rows (7
+    rows: 6 bands) and d_img's blocks of image rows and columns (8 x 32)
+    end short of their full size."""
+    imgs, ry, rx, u = _crop_case(device, torch.float32, 2, 45, 50, 3, 9, 37,
+                                 37, seed=12)
+    _assert_crop_bitwise(imgs, ry, rx, u)
+
+
 BOXES_ONLY = (False, True, True)
 
 
