@@ -95,7 +95,8 @@ from scene_generation_tpu_torch.ops.crop import (crop_bwd, crop_bwd_plain,
 from scene_generation_tpu_torch.ops.layout import compositor_inputs
 from scene_generation_tpu_torch.ops.sampling import (crop_matrices,
                                                       exact_f32_matmul)
-from scene_generation_tpu_torch.ops.stem import stem, stem_plain
+from scene_generation_tpu_torch.ops.stem import (stem, stem_plain,
+                                                 tc_launch_config)
 from scene_generation_tpu_torch.serve import Server, make_handler
 from scene_generation_tpu_torch.tools import (compute_diversity, compute_fid,
                                               encode_features, gui_server,
@@ -244,8 +245,10 @@ def check_stem(cfg: Config) -> dict:
     equal, timed by CUDA events beside the plain version and the
     grouped-conv yardstick. The f32 row's bound is its three TF32 products
     at the TF32 tensor-core rate; ``cuda_core_bound_ms`` keeps the bound of
-    one f32 product on the CUDA cores (the kernel it replaced). Device times
-    come last (``stem_device_times``)."""
+    one f32 product on the CUDA cores (the kernel it replaced). The bf16
+    row carries its kernel's launch (``launch``: registers a thread,
+    dynamic shared memory, blocks an SM, grid, ...). Device times come
+    last (``stem_device_times``)."""
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         w, g = stem_inputs(cfg, dtype)
@@ -275,6 +278,7 @@ def check_stem(cfg: Config) -> dict:
             extra["cuda_core_bound_ms"] = bound(flops, moved, dtype)[0]
         else:
             b_ms, b_by = bound(flops, moved, dtype)
+            extra["launch"] = tc_launch_config(n, hp - 6, wp - 6, o, c)
         rows[dtype] = dict(max_abs_err=err, tol=tol, **extra,
                            ms=cuda_ms(lambda: stem(w, g)),
                            plain_ms=cuda_ms(lambda: stem_plain(w, g)),
@@ -679,7 +683,8 @@ def stem_device_times(cfg: Config, rows: dict) -> None:
         say("kernel stem device", dtype=str(dtype), device_ms=row["device_ms"],
             device_kernels=dev, library_device_ms=row["library_device_ms"],
             library_device_kernels=lib, bound_ms=row["bound_ms"],
-            clocks_sm=sm_clock())
+            clocks_sm=sm_clock(), **({"launch": row["launch"]}
+                                     if "launch" in row else {}))
 
 
 def crop_device_times(cfg: Config, rows: dict) -> None:

@@ -6,11 +6,13 @@
 It replaces the TPU kernel ``stem_pallas`` of the JAX package
 (``ops/pallas/stem.py``). ``stem`` launches the kernel for a CUDA tensor and
 runs ``stem_plain`` for a CPU tensor; it never falls back from one to the
-other. The dtype picks the kernel, both on the tensor cores
-(``mma.sync``): bfloat16 (serving; counted in ``LAUNCHES["stem_tc"]``
-too) and float32 in 3xTF32 (each operand split into a TF32 high and low
-part, three products summed in f32; counted in ``LAUNCHES["stem_f32"]``
-too). ``LAUNCHES["stem"]`` counts every launch. The kernels are
+other. The dtype picks the kernel, both on the tensor cores: bfloat16
+(serving; Hopper's warpgroup products, ``wgmma.mma_async``, fed by bulk
+copies on mbarriers; counted in ``LAUNCHES["stem_tc"]`` too) and float32
+in 3xTF32 (``mma.sync``: each operand split into a TF32 high and low part,
+three products summed in f32; counted in ``LAUNCHES["stem_f32"]`` too).
+``LAUNCHES["stem"]`` counts every launch; ``tc_launch_config`` reports
+the bf16 kernel's launch at a shape. The kernels are
 forward-only (test mode, serving): the wrapper raises rather than detach a
 graph. Training runs ``stem_patches``, the JAX
 package's differentiable ``patches`` form, on every device.
@@ -82,6 +84,26 @@ def _launch(weights: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     _cuda.LAUNCHES["stem_tc" if weights.dtype == torch.bfloat16
                    else "stem_f32"] += 1
     return out
+
+
+_TC_CONFIG_KEYS = ("registers", "dynamic_smem_bytes", "blocks_per_sm", "grid",
+                   "ring_rows", "band_rows", "local_bytes", "threads")
+
+
+def tc_launch_config(n: int, h: int, w: int, o: int, c: int) -> dict:
+    """The bf16 kernel's launch at output (N, H, W) with O weight channels
+    and C channels on the current card, without launching it: registers a
+    thread, dynamic shared memory, blocks an SM, grid, packed input rows
+    resident, output rows a band, local memory a thread and threads a
+    block. Raises where the kernel would refuse the shape."""
+    lib = _cuda.library("stem")
+    fn = lib.sg_stem_tc_config
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * len(_TC_CONFIG_KEYS))()
+    _cuda.check(lib, fn(n, h, w, o, c, info),
+                f"stem kernel config at W={w}, O={o}, C={c}")
+    return dict(zip(_TC_CONFIG_KEYS, info))
 
 
 def stem(weights: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,8 @@ from scene_generation_tpu_torch.ops.crop import (crop, crop_bbox_batch,
                                                  crop_fwd, crop_fwd_plain)
 from scene_generation_tpu_torch.ops.layout import compositor_inputs
 from scene_generation_tpu_torch.ops.sampling import crop_matrices
-from scene_generation_tpu_torch.ops.stem import stem, stem_plain
+from scene_generation_tpu_torch.ops.stem import (stem, stem_plain,
+                                                 tc_launch_config)
 
 pytestmark = pytest.mark.cuda
 
@@ -149,6 +150,82 @@ def test_stem_tc_kernel_is_bitwise_repeatable(device):
     w_t, g_t = _bf16_stem_case(device, 16, 128, 128, 9, 64)
     first = stem(w_t, g_t)
     assert torch.equal(first, stem(w_t, g_t))
+
+
+# (N, H, W, O, C) at the edges of the warpgroup kernel's passes and
+# bands: W of 63 and 64 (one pass of 64 pixels), 65 (a pass of 128 whose
+# last 63 pixels lie past W) and 129 (one of 128, then one of 64); C of 8
+# (56 channels of the 64-channel product unused), 64 and 72 (a second
+# channel tile holding 8); O = 1 (7 of 16 k) and O = 10 (70 k: a second
+# 64-k block of the packed rows); 17 images at the serving size (7 bands
+# of 19 rows an image, the last of 14: 119 blocks) and 150 small images
+# (one band each, more bands than SMs: blocks walk two images).
+STEM_TC_EDGE_SHAPES = [(2, 12, 63, 9, 64), (2, 12, 64, 9, 64),
+                       (2, 12, 65, 9, 64), (1, 12, 129, 9, 64),
+                       (2, 12, 40, 9, 8), (2, 12, 40, 9, 72),
+                       (2, 20, 96, 1, 64), (2, 12, 32, 10, 64),
+                       (17, 128, 128, 9, 64), (150, 12, 20, 9, 64)]
+
+
+@pytest.mark.parametrize("shape", STEM_TC_EDGE_SHAPES)
+def test_stem_tc_kernel_matches_plain_at_the_edges_of_its_tiles(device,
+                                                                 shape):
+    w_t, g_t = _bf16_stem_case(device, *shape, seed=2)
+    before = _cuda.LAUNCHES["stem_tc"]
+    got = stem(w_t, g_t)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["stem_tc"] == before + 1
+    _assert_bf16_stem_matches_plain(w_t, g_t, got)
+
+
+def test_stem_tc_kernel_bands_with_a_last_band_of_one_row(device):
+    """16 images of 22 rows: bands of 3 rows, the last of 1 (on a card of
+    132 SMs, 8 bands an image; the test reads the launch's band rows)."""
+    n, h, w, o, c = 16, 22, 40, 9, 64
+    config = tc_launch_config(n, h, w, o, c)
+    w_t, g_t = _bf16_stem_case(device, n, h, w, o, c, seed=3)
+    got = stem(w_t, g_t)
+    torch.cuda.synchronize()
+    if torch.cuda.get_device_properties(0).multi_processor_count == 132:
+        assert h % config["band_rows"] == 1
+    _assert_bf16_stem_matches_plain(w_t, g_t, got)
+
+
+@pytest.mark.parametrize("x0", [0, 6, 37, 63])
+def test_stem_tc_kernel_sends_each_dx_to_its_own_column(device, x0):
+    """A field that is zero but at padded column x0: output column x0 - dx
+    holds the dx taps alone, so a packed row's window at a wrong offset
+    shows as a wrong or empty column."""
+    n, h, w, o, c = 2, 10, 64, 9, 64
+    rng = np.random.RandomState(4)
+    field = np.zeros((n, h + 6, w + 6, o), np.float32)
+    field[:, :, x0] = rng.uniform(0.5, 1.0, (n, h + 6, o))
+    taps = rng.uniform(-1, 1, (n, 7, 7, o, c)).astype(np.float32)
+    w_t = torch.from_numpy(field).to(device, torch.bfloat16)
+    g_t = torch.from_numpy(taps).to(device, torch.bfloat16)
+    got = stem(w_t, g_t).float()
+    torch.cuda.synchronize()
+    want = stem_plain(w_t.float(), g_t.float())
+    _assert_bf16_stem_matches_plain(w_t, g_t, got.bfloat16())
+    lit = [x0 - dx for dx in range(7) if 0 <= x0 - dx < w]
+    assert bool((want[:, :, lit].abs().amax(dim=(0, 1, 3)) > 0).all())
+    assert bool((got[:, :, lit].abs().amax(dim=(0, 1, 3)) > 0).all())
+    dark = [x for x in range(w) if x not in lit]
+    assert float(got[:, :, dark].abs().max()) == 0.0
+
+
+def test_stem_tc_kernel_launch_config(device):
+    """At the serving shape: one block an SM, no spills, every band of a
+    16-image batch in one wave."""
+    config = tc_launch_config(16, 128, 128, 9, 64)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert config["blocks_per_sm"] == 1
+    assert config["local_bytes"] == 0
+    assert config["threads"] == 384
+    assert config["grid"] <= sms
+    assert config["ring_rows"] >= 7
+    assert config["dynamic_smem_bytes"] <= (
+        torch.cuda.get_device_properties(0).shared_memory_per_block_optin)
 
 
 def test_stem_tc_kernel_at_the_edge_of_the_bf16_range(device):
