@@ -95,8 +95,8 @@ from scene_generation_tpu_torch.ops.crop import (crop_bwd, crop_bwd_plain,
 from scene_generation_tpu_torch.ops.layout import compositor_inputs
 from scene_generation_tpu_torch.ops.sampling import (crop_matrices,
                                                       exact_f32_matmul)
-from scene_generation_tpu_torch.ops.stem import (stem, stem_plain,
-                                                 tc_launch_config)
+from scene_generation_tpu_torch.ops.stem import (f32_launch_config, stem,
+                                                 stem_plain, tc_launch_config)
 from scene_generation_tpu_torch.serve import Server, make_handler
 from scene_generation_tpu_torch.tools import (compute_diversity, compute_fid,
                                               encode_features, gui_server,
@@ -217,16 +217,26 @@ def sm_clock() -> str:
 
 # --- phase 3: kernels against their plain versions --------------------------
 
-def stem_inputs(cfg: Config, dtype, seed=1):
+def stem_inputs(cfg: Config, dtype, seed=1, n=BATCH):
     """The stem's main-path shapes: the padded weight field (values in
     [0, 1], as claimed mask weights are) and the per-image taps."""
     mc = cfg.model
     h = mc.image_size[0]
     o = cfg.data.max_objs
     gen = torch.Generator().manual_seed(seed)
-    w = torch.rand((BATCH, h + 6, h + 6, o), generator=gen)
-    g = 0.1 * torch.randn((BATCH, 7, 7, o, mc.ngf), generator=gen)
+    w = torch.rand((n, h + 6, h + 6, o), generator=gen)
+    g = 0.1 * torch.randn((n, 7, 7, o, mc.ngf), generator=gen)
     return w.to("cuda", dtype), g.to("cuda", dtype)
+
+
+# The stem's rows: f32 and bf16 at the serving batch, keyed by dtype, and
+# f32 at a val sweep's batch (the train CLI's), keyed (dtype, batch).
+STEM_CASES = ((torch.float32, BATCH), (torch.float32, TRAIN_BATCH),
+              (torch.bfloat16, BATCH))
+
+
+def stem_key(dtype, n: int):
+    return dtype if n == BATCH else (dtype, n)
 
 
 def stem_library_call(w, g):
@@ -241,17 +251,17 @@ def stem_library_call(w, g):
 
 def check_stem(cfg: Config) -> dict:
     """The stem kernel against its plain version at the serving shape, f32
-    (the 3xTF32 kernel) and bf16 (the bf16 kernel), each twice, bitwise
-    equal, timed by CUDA events beside the plain version and the
-    grouped-conv yardstick. The f32 row's bound is its three TF32 products
-    at the TF32 tensor-core rate; ``cuda_core_bound_ms`` keeps the bound of
-    one f32 product on the CUDA cores (the kernel it replaced). The bf16
-    row carries its kernel's launch (``launch``: registers a thread,
-    dynamic shared memory, blocks an SM, grid, ...). Device times come
-    last (``stem_device_times``)."""
+    (the 3xTF32 kernel) and bf16 (the bf16 kernel), and in f32 at a val
+    sweep's batch, each twice, bitwise equal, timed by CUDA events beside
+    the plain version and the grouped-conv yardstick. The f32 rows' bound
+    is their three TF32 products at the TF32 tensor-core rate;
+    ``cuda_core_bound_ms`` keeps the bound of one f32 product on the CUDA
+    cores (the kernel PR 10 replaced). Each row carries its kernel's
+    launch (``launch``: registers a thread, dynamic shared memory, blocks
+    an SM, grid, ...). Device times come last (``stem_device_times``)."""
     rows = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        w, g = stem_inputs(cfg, dtype)
+    for dtype, batch in STEM_CASES:
+        w, g = stem_inputs(cfg, dtype, n=batch)
         got = stem(w, g)
         again = stem(w, g)
         want = stem_plain(w, g)
@@ -276,15 +286,19 @@ def check_stem(cfg: Config) -> dict:
         if dtype == torch.float32:
             b_ms, b_by = bound(TF32_SPLIT_PRODUCTS * flops, moved, "tf32")
             extra["cuda_core_bound_ms"] = bound(flops, moved, dtype)[0]
+            extra["launch"] = f32_launch_config(n, hp - 6, wp - 6, o, c)
         else:
             b_ms, b_by = bound(flops, moved, dtype)
             extra["launch"] = tc_launch_config(n, hp - 6, wp - 6, o, c)
-        rows[dtype] = dict(max_abs_err=err, tol=tol, **extra,
-                           ms=cuda_ms(lambda: stem(w, g)),
-                           plain_ms=cuda_ms(lambda: stem_plain(w, g)),
-                           library_ms=cuda_ms(library),
-                           bound_ms=b_ms, bound_by=b_by)
-        say("kernel stem", dtype=str(dtype), **rows[dtype])
+        check(extra["launch"]["local_bytes"] == 0,
+              f"stem kernel {dtype} spills: {extra['launch']}")
+        key = stem_key(dtype, batch)
+        rows[key] = dict(batch=batch, max_abs_err=err, tol=tol, **extra,
+                         ms=cuda_ms(lambda: stem(w, g)),
+                         plain_ms=cuda_ms(lambda: stem_plain(w, g)),
+                         library_ms=cuda_ms(library),
+                         bound_ms=b_ms, bound_by=b_by)
+        say("kernel stem", dtype=str(dtype), **rows[key])
     return rows
 
 
@@ -672,15 +686,16 @@ def stem_device_times(cfg: Config, rows: dict) -> None:
     """Each stem row's device time per call and its grouped-conv
     yardstick's (the profiler's own kernel times), added to ``rows``; run
     at the start of a process (``fresh_device_times``)."""
-    for dtype in (torch.float32, torch.bfloat16):
-        w, g = stem_inputs(cfg, dtype)
+    for dtype, batch in STEM_CASES:
+        w, g = stem_inputs(cfg, dtype, n=batch)
         dev = device_kernels_ms(lambda: stem(w, g))
         lib = device_kernels_ms(stem_library_call(w, g))
-        row = rows[dtype]
+        row = rows[stem_key(dtype, batch)]
         row.update(device_ms=device_total_ms(dev), device_kernels=dev,
                    library_device_ms=device_total_ms(lib),
                    library_device_kernels=lib)
-        say("kernel stem device", dtype=str(dtype), device_ms=row["device_ms"],
+        say("kernel stem device", dtype=str(dtype), batch=batch,
+            device_ms=row["device_ms"],
             device_kernels=dev, library_device_ms=row["library_device_ms"],
             library_device_kernels=lib, bound_ms=row["bound_ms"],
             clocks_sm=sm_clock(), **({"launch": row["launch"]}
@@ -803,7 +818,7 @@ def fresh_device_times(stem_rows: dict, comp_rows: dict,
             kernel, rec = tag.split()[1], json.loads(payload)
             dtype = getattr(torch, rec["dtype"].split(".")[1])
             if kernel == "stem":
-                row = stem_rows[dtype]
+                row = stem_rows[stem_key(dtype, rec["batch"])]
             elif kernel == "compositor":
                 row = comp_rows[dtype]
             elif kernel.endswith("_per_rank"):   # measured in the child
@@ -2540,14 +2555,20 @@ def main(argv=None) -> int:
         # The f32 stem (3xTF32): launches serving the ported reference
         # checkpoint at f32; its bound is three TF32 products at the TF32
         # tensor-core rate, cuda_core_bound_ms one f32 product on the CUDA
-        # cores.
+        # cores; its launch, and the same at a val sweep's batch.
         dict(row("stem_f32", "scene_generation_tpu_torch/csrc/stem.cu",
                  "scene_generation_tpu/ops/pallas/stem.py:47",
                  ref["f32_launches"].get("stem_f32", 0),
                  stem_rows[torch.float32]),
              train_cli_launches=cli["f32_stem_launches"],
              cuda_core_bound_ms=stem_rows[torch.float32][
-                 "cuda_core_bound_ms"]),
+                 "cuda_core_bound_ms"],
+             launch=stem_rows[torch.float32]["launch"],
+             val_sweep={k: v for k, v in stem_rows[
+                 (torch.float32, TRAIN_BATCH)].items()
+                 if k in ("batch", "max_abs_err", "ms", "plain_ms",
+                          "library_ms", "bound_ms", "bound_by", "device_ms",
+                          "library_device_ms", "launch")}),
         row("compositor", "scene_generation_tpu_torch/csrc/compositor.cu",
             "scene_generation_tpu/ops/pallas/compositor.py:48",
             dense_launches["compositor"], comp_rows[torch.bfloat16]),

@@ -37,78 +37,40 @@
 //     transpose; imm-trans-a), the packed rows K-major (a pixel's 64 k =
 //     128 bytes; k past 64, at O=10, in a second block). A pass covers 128
 //     pixels, the last one 64 (m64n64k16) when no more are left.
-//   * A block is three warpgroups. Warpgroup 2 produces: each of its warps
-//     packs every 4th input row, its raw row brought by one bulk copy of the
-//     16-byte-aligned span that holds it (a row of w_pad is (W+6)*O*2 bytes,
-//     2412 at the serving shape, so rows and bases are not 16-byte aligned;
-//     the span starts and ends inside the 16-byte granules of the row's first
-//     and last bytes, which lie in the row's own allocation, so nothing past
-//     it is read), completing on an mbarrier, into a ring of 7-9 packed rows
-//     (an mbarrier pair a slot: full, empty). Four warps keep four rows in
-//     flight: packing is a chain of shared-memory round trips that the
-//     products' operand reads slow down. Warpgroups 0 and 1 consume, even
-//     and odd output rows: wait for the rows they need, issue the pass's
-//     products back to back, wait, release the rows they are done with, and
-//     store while the producer packs ahead and the other consumer's products
-//     run. The store rounds to bf16 once; stmatrix.trans writes each 8x8
-//     block (8 channels x 8 pixels) transposed into the warpgroup's 64-pixel
-//     tile, a pixel's channels 16-byte rows (swizzled by pixel & 7), and the
-//     warpgroup then writes whole pixels out, consecutive lanes on
-//     consecutive bytes: stored straight from the fragments, a warp's 32
-//     16-byte pieces would lie 128 bytes apart.
-//   * The grid is persistent and balanced: the images' output rows are cut
-//     into bands, SMs/(N*CT) of them an image (CT = channel tiles of 64), so
-//     that the bands fill at most one block an SM (shared memory allows one):
-//     at the serving shape 8 bands of 16 rows an image, 128 blocks, one
-//     wave. With more images than SMs a block walks several bands. At a
-//     band's start g[n] arrives by one bulk copy at the end of the ring's
-//     space; the consumers stage B from it while the producer packs the
-//     band's first rows into the slots below it (it waits for B only before
-//     a slot that overlaps g), so g[n] is read once a band, not a row.
-// Every output is summed by one warpgroup in a fixed order, with no atomics:
-// a call is bitwise repeatable. Ragged edges: a packed row holds W pixels
-// (rounded up to 8) and the last pass's pixels past W read what follows it
-// (finite or not, it reaches only its own columns of the product, which are
-// not stored); k past 7*O is zero in both operands; channels past C are
-// zero in B and not stored.
-//
-// float32: stem_f32_kernel, on the tensor cores in 3xTF32. Plain TF32
-// (10 mantissa bits) would spend the f32 card-vs-CPU margins, so every
-// operand is split after its fragment is loaded, hi = x rounded to tf32
-// and lo = x - hi, and each product is a_lo*b_hi + a_hi*b_lo + a_hi*b_hi
-// (the small terms first) by mma.sync m16n8k8 tf32 with f32 sums: about 21
-// bits of each product, f32 sums. So the bound is three TF32 products a
-// multiply-add: 3 x 14.8 GFLOP at the dense TF32 rate, about 0.09 ms at
-// the serving shape. It packs as the TPU kernel does (dy in k), in f32 tiles:
-//   * wE[ty][x][k] (k = dy*O + o, KS = 7*O rounded up to 32 floats a
-//     pixel), gathered straight from w_pad[n] (no o-major copy: in f32 a
-//     pixel's 9 channels are 36 contiguous bytes of one row);
-//   * gB[dx][c][k], c-major: ldmatrix moves 16-bit elements and .trans
-//     would tear the f32 words, so B is stored with k contiguous and read
-//     untransposed, an 8x8 b16 matrix being 8 rows of 4 f32 words, one a
-//     lane, which is the tf32 fragment (k = lane % 4, c = lane / 4);
-//   * the dx shift: A_dx is wE read dx pixel rows further on, which
-//     ldmatrix takes at any 16-byte-aligned row, and a 16-byte-chunk swizzle
-//     (chunk ^ row & 7) of every 128 bytes against bank conflicts.
-// f32 doubles every tile, and all of g[n] (7 x 64 x 64 floats, 112 KB at
-// the serving shape) stays resident, so a block owns TH_F32 = 2 output
-// rows at a time (183 KB of shared memory at the serving shape, one block
-// an SM). Blocks are persistent over the row pairs of one image: g[n] is
-// staged once a block, and only wE for each pair. Its 8 warps each own one
-// row of the pair, one half of the pixels in passes of 64 and one half of
-// every 64 channels (MT x NT = 4 x 4 fragments, 64 f32 sums a lane), with
-// each step's fragments loaded during the step before and the three
-// products issued as three rounds over the 16 tiles. The split is integer
-// and f32 arithmetic (cvt.rna.tf32 issues at a fraction of the rate and
-// held the first version to the old kernel's time). No atomics and a fixed
-// order of the three products and of k: a call is bitwise repeatable.
+//   * A block is three warpgroups. Warpgroup 2 produces: every output row
+//     of the unit in turn, gathered from its 7 input rows' band spans
+//     through L1 (where the 7 output rows that use an input row find it;
+//     a table of each chunk's 4 element offsets, built once, saves the
+//     index arithmetic), split and stored 16 bytes a chunk into the ring
+//     of 3 (mbarriers full and empty a slot), with 40 registers a thread
+//     (setmaxnreg). Warpgroups 0 and 1 consume, even and odd output rows,
+//     with 232: they stage the unit's taps, then take each row's 56 steps
+//     (k8, then dx) of 3 products, 21 products a group behind one fence,
+//     the next step's fragments loaded and split while a group runs; then
+//     free the slot and store. Two consumers keep the tensor cores fed
+//     (one alone runs its products well below the rate two reach) while
+//     the producer packs ahead. Packing in the consumers, the two fell
+//     into step and the tensor cores idled while both packed; taking
+//     turns left each alone on them.
+//   * Stores go straight from the fragments: f32 sums at channels 16w +
+//     l/4 and pixels 8j + 2(l%4) make a warp's store four whole 32-byte
+//     sectors (8 channels of 4 pixels).
+//   * The grid is persistent and balanced like the bf16 one: an image's
+//     bands cut into SMs / (N * CT * bands of pixels) bands of rows, one
+//     block an SM (shared memory allows one), so that both the serving
+//     shape (16 images: 128 units of 32 rows) and a val sweep's (12: 120
+//     of 26) take one wave.
+// No atomics and a fixed order of the three products, of k and of dx: a
+// call is bitwise repeatable. Ragged edges: pixels past W+6 and k past 7*O
+// are zero in E, channels past C are zero in T and not stored, nor pixels
+// past W.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
-#include <climits>
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
@@ -163,6 +125,58 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+
+// --- host: the card, read once a process -----------------------------------
+
+// The SM count and the shared memory a block may opt into, of one device.
+struct DeviceInfo {
+  int sms = 0;
+  int max_smem = 0;
+};
+
+constexpr int MAX_DEVICES = 64;
+enum KernelIndex { KERNEL_TC, KERNEL_F32_64, KERNEL_F32_32, KERNELS };
+
+std::mutex host_mutex;                  // ctypes calls come without the GIL
+DeviceInfo devices[MAX_DEVICES];
+uint32_t smem_allowed[MAX_DEVICES][KERNELS];
+
+// The current device and its info, queried at its first launch only.
+cudaError_t device_info(int& device, DeviceInfo& info) {
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(host_mutex);
+  DeviceInfo& d = devices[device];
+  if (d.sms == 0) {
+    DeviceInfo q;
+    err = cudaDeviceGetAttribute(&q.sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &q.max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return err;
+    d = q;
+  }
+  info = d;
+  return cudaSuccess;
+}
+
+// Lets kernel use bytes of dynamic shared memory on device: one
+// cudaFuncSetAttribute a kernel, device and larger size, none after.
+cudaError_t allow_smem(const void* kernel, int which, int device,
+                       uint32_t bytes) {
+  std::lock_guard<std::mutex> lock(host_mutex);
+  if (smem_allowed[device][which] >= bytes) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so no later launch check reports it
+    return err;
+  }
+  smem_allowed[device][which] = bytes;
+  return cudaSuccess;
 }
 
 // --- bfloat16: warpgroup products -------------------------------------------
@@ -716,22 +730,15 @@ struct TcLaunch {
 // The plan and grid of a launch at this shape on the current card;
 // cudaErrorInvalidValue if its tiles do not fit a block's shared memory.
 cudaError_t tc_launch_plan(int N, int H, int W, int O, int C, TcLaunch& L) {
-  int device = 0, sms = 1, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  int device = 0;
+  DeviceInfo info;
+  cudaError_t err = device_info(device, info);
   if (err != cudaSuccess) return err;
-  if (!tc_plan(N, H, W, O, C, sms, max_smem, L.plan))
+  if (!tc_plan(N, H, W, O, C, info.sms, info.max_smem, L.plan))
     return cudaErrorInvalidValue;
-  L.grid = std::min(L.plan.units, sms);
-  err = cudaFuncSetAttribute(stem_tc_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)L.plan.total);
-  if (err != cudaSuccess) cudaGetLastError();  // clear it for later checks
-  return err;
+  L.grid = std::min(L.plan.units, info.sms);
+  return allow_smem((const void*)stem_tc_kernel, KERNEL_TC, device,
+                    L.plan.total);
 }
 
 cudaError_t launch_tc(const void* w, const void* g, void* out, int N, int H,
@@ -745,319 +752,465 @@ cudaError_t launch_tc(const void* w, const void* g, void* out, int N, int H,
   return cudaGetLastError();
 }
 
-// --- float32: tensor cores, 3xTF32 -----------------------------------------
+// --- float32: warpgroup products in 3xTF32 -------------------------------
 
-constexpr int TH_F32 = 2;            // output rows per block
-constexpr int MT = 4;                // m16 tiles of a warp's pass: 64 pixels
-constexpr int NT = 4;                // n8 tiles of a warp's pass: 32 channels
-constexpr int F32_WARPS = 8;         // (row, pixel half, channel half)
-constexpr int F32_THREADS = 32 * F32_WARPS;
+constexpr int F32_WG = 128;              // threads of a warpgroup
+constexpr int F32_THREADS = 3 * F32_WG;  // consumers 0 and 1, producer 2
+constexpr int F32_CONSUMERS = 2 * F32_WG;
+constexpr int F32_NC = 64;               // channels of a product (wgmma's M)
+constexpr int F32_RING_MAX = 3;          // packed rows resident, at most
 
-// Where the f32 kernel's tiles lie in dynamic shared memory, in floats:
-// wE [TH_F32][WX][KS] at 0, gB [7][CS][KS] at gB.
-struct F32Layout {
-  int KO;      // k of the product: 7*O rounded up to 8
-  int KS;      // floats per row of wE and gB: 7*O rounded up to 32
-  int WX;      // pixels of wE: W rounded up to 16, plus 6
-  int CS;      // channel rows of gB: C rounded up to 16
+// The launch's plan: a band of PX pixels (64, or 32 where 64 does not
+// fit) of RB output rows of one image and channel tile is a unit, and
+// where its tiles lie in dynamic shared memory (byte offsets): the taps
+// [7 dx][CS channels][RS chunks] at 0 (a chunk is 4 k; k = dy*O + o), then
+// a ring of packed rows at taps, each [KC chunks][XP pixels] of the high
+// parts, then the same of the low parts; then the mbarriers (full[ring],
+// empty[ring]); then each chunk's 4 element offsets in an input pixel.
+struct F32Plan {
+  int PX;           // pixels of a band and of a product (wgmma's N)
+  int XP;           // pixels of a packed row: PX + 6
+  int KC;           // chunks of a tap row and of a packed pixel: 7*O / 4, up
+  int RS;           // chunks a tap row takes: KC if swizzled, else KC | 1
+  int CS;           // tap rows staged: C rounded up to 16, at most 64
+  int CT, XT;       // channel tiles of 64, pixel bands of PX
+  int RB, bands;    // output rows of a band, bands of an image's column
+  int units;        // N * CT * XT * bands
+  int ring;         // packed rows resident: 3, or 2 where 3 do not fit
   FastDiv by_O;
-  size_t gB, total;
+  uint32_t taps;    // bytes of the taps
+  uint32_t slot;    // bytes of a packed row: high, then low parts
+  uint32_t bars_at, koff_at, total;
 };
 
-inline F32Layout f32_layout(int W, int O, int C) {
-  F32Layout t;
-  t.KO = round_up(K * O, 8);
-  t.KS = round_up(K * O, 32);
-  t.WX = round_up(W, 16) + K - 1;
-  t.CS = round_up(C, 16);
-  t.by_O = fast_div(O);
-  t.gB = (size_t)TH_F32 * t.WX * t.KS;
-  t.total = t.gB + (size_t)K * t.CS * t.KS;
-  return t;
+inline bool f32_plan_at(int N, int H, int W, int O, int C, int sms,
+                        int max_smem, int PX, F32Plan& P) {
+  P.PX = PX;
+  P.XP = PX + K - 1;
+  P.KC = round_up(K * O, 8) / 4;
+  P.RS = P.KC % 8 == 0 ? P.KC : (P.KC | 1);
+  P.CS = std::min(F32_NC, round_up(C, 16));
+  P.CT = (C + F32_NC - 1) / F32_NC;
+  P.XT = (W + PX - 1) / PX;
+  const int columns = N * P.CT * P.XT;
+  const int per_column = std::min(H, std::max(1, sms / columns));
+  P.RB = (H + per_column - 1) / per_column;
+  P.bands = (H + P.RB - 1) / P.RB;
+  P.units = columns * P.bands;
+  P.by_O = fast_div(O);
+  const size_t taps = (size_t)K * P.CS * P.RS * 16;
+  const size_t slot = (size_t)2 * P.KC * P.XP * 16;
+  for (int ring = F32_RING_MAX; ring >= 2; --ring) {
+    const size_t bars_at = taps + ring * slot;
+    const size_t koff_at = bars_at + 2 * 8 * ring;
+    const size_t total = koff_at + (size_t)P.KC * 16;
+    if (total <= (size_t)max_smem) {
+      P.ring = ring;
+      P.taps = (uint32_t)taps;
+      P.slot = (uint32_t)slot;
+      P.bars_at = (uint32_t)bars_at;
+      P.koff_at = (uint32_t)koff_at;
+      P.total = (uint32_t)total;
+      return true;
+    }
+  }
+  return false;
 }
 
-// The 3xTF32 split of a fragment register, in full-rate integer and f32
-// ops (cvt.rna.tf32.f32 issues at a fraction of their rate): hi = x
-// rounded to tf32 (to nearest, ties away: the 13 low mantissa bits
-// rounded off), lo = x - hi, exact in f32 and passed as it is: a tf32
-// operand's low 13 bits are not read, so lo is truncated to tf32, an
-// error of at most 2^-21 of x.
-__device__ __forceinline__ void split_tf32(uint32_t raw, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (raw + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(__uint_as_float(raw) - __uint_as_float(hi));
+// Bands of 64 pixels where their tiles fit a block's shared memory, else of
+// 32; false if neither fits.
+inline bool f32_plan(int N, int H, int W, int O, int C, int sms,
+                     int max_smem, F32Plan& P) {
+  return f32_plan_at(N, H, W, O, C, sms, max_smem, 64, P) ||
+         f32_plan_at(N, H, W, O, C, sms, max_smem, 32, P);
 }
 
-// d += a * b: m16n8k8, A row-major tf32, B column-major tf32, f32 sums.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
+// A wgmma matrix descriptor of a K-major operand without swizzle: core
+// matrices of 8 rows of 16 bytes (a row: one pixel's 4 k), the rows of one
+// core matrix contiguous, k_stride bytes from one 4-k chunk to the next
+// (the leading dimension) and 128 from one 8 rows to the next (the
+// stride dimension). A start 16*dx bytes on is the same operand dx pixels
+// on: the dx shift of the stem's sum.
+__device__ __forceinline__ uint64_t plain_desc(uint32_t addr,
+                                               uint32_t k_stride) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(k_stride >> 4) << 16) | ((uint64_t)(128 >> 4) << 32);
+}
+
+// d += A * B: m64nNk8 in tf32, A (4 registers a thread: rows 16w + l/4
+// (+8), k l%4 (+4)) from registers, B by descriptor, f32 sums. A tf32
+// operand's low 13 bits are not read.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
-// One step's raw fragments (f32 bits): A of MT m-tiles, B of NT n-tiles.
-struct F32Frags {
-  uint32_t a[MT][4];
-  uint32_t b[NT][2];
-};
-
-// Loads step s (dx = s / KQ, k = 8 * (s % KQ)) of a warp's pass at pixels
-// x0 and channels c0 by ldmatrix.x4 from the swizzled tiles; GUARD skips
-// the tiles beyond W or C (a pass without such tiles runs no test).
-template <bool GUARD>
-__device__ __forceinline__ void f32_load(
-    F32Frags& f, int s, int KQ, int x0, int c0, uint32_t a_base,
-    uint32_t b_base, int a_row, int a_kc, int b_row, int b_kc, int KS, int CS,
-    const bool (&m_on)[MT], const bool (&n_on)[NT]) {
-  const int dx = s / KQ, ks = s - dx * KQ;
-  const int xa = x0 + a_row + dx;
-  const uint32_t a_addr = a_base + 4u * (uint32_t)(
-      xa * KS + 4 * swizzle(2 * ks + a_kc, xa));
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-    if (!GUARD || m_on[mt]) ldmatrix_x4(f.a[mt], a_addr + 64u * mt * KS);
-#pragma unroll
-  for (int p = 0; p < NT / 2; ++p) {
-    if (GUARD && !n_on[2 * p]) continue;
-    const int c = c0 + 16 * p + b_row;
-    uint32_t q[4];
-    ldmatrix_x4(q, b_base + 4u * (uint32_t)(
-        (dx * CS + c) * KS + 4 * swizzle(2 * ks + b_kc, c)));
-    f.b[2 * p][0] = q[0];
-    f.b[2 * p][1] = q[1];
-    f.b[2 * p + 1][0] = q[2];
-    f.b[2 * p + 1][1] = q[3];
-  }
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
-// acc += A * B of one step in 3xTF32: every fragment split, then the
-// three products as three rounds over the tiles (a_lo*b_hi, a_hi*b_lo,
-// a_hi*b_hi), so that no product waits on the one before it.
-template <bool GUARD>
-__device__ __forceinline__ void f32_products(float (&acc)[MT][NT][4],
-                                             const F32Frags& f,
-                                             const bool (&m_on)[MT],
-                                             const bool (&n_on)[NT]) {
-  uint32_t a_hi[MT][4], a_lo[MT][4], b_hi[NT][2], b_lo[NT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      split_tf32(f.a[mt][i], a_hi[mt][i], a_lo[mt][i]);
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      split_tf32(f.b[nt][i], b_hi[nt][i], b_lo[nt][i]);
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      if (!GUARD || (m_on[mt] && n_on[nt]))
-        mma_tf32(acc[mt][nt], a_lo[mt], b_hi[nt]);
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      if (!GUARD || (m_on[mt] && n_on[nt]))
-        mma_tf32(acc[mt][nt], a_hi[mt], b_lo[nt]);
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      if (!GUARD || (m_on[mt] && n_on[nt]))
-        mma_tf32(acc[mt][nt], a_hi[mt], b_hi[nt]);
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-// One pass of a warp: acc = the 64 pixels at x0 times the 32 channels at
-// c0 of the block's output row, over every step (dx, 8 k). Each step's
-// fragments are loaded during the step before (two register sets, so the
-// loop runs two steps a turn).
-template <bool GUARD>
-__device__ __forceinline__ void f32_pass(
-    float (&acc)[MT][NT][4], int KQ, int x0, int c0, uint32_t a_base,
-    uint32_t b_base, int a_row, int a_kc, int b_row, int b_kc, int KS,
-    int CS, const bool (&m_on)[MT], const bool (&n_on)[NT]) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-  const int steps = K * KQ;
-  F32Frags f0, f1;
-  f32_load<GUARD>(f0, 0, KQ, x0, c0, a_base, b_base, a_row, a_kc, b_row,
-                  b_kc, KS, CS, m_on, n_on);
-  for (int s = 0; s < steps; s += 2) {
-    if (s + 1 < steps)
-      f32_load<GUARD>(f1, s + 1, KQ, x0, c0, a_base, b_base, a_row, a_kc,
-                      b_row, b_kc, KS, CS, m_on, n_on);
-    f32_products<GUARD>(acc, f0, m_on, n_on);
-    if (s + 1 >= steps) break;
-    if (s + 2 < steps)
-      f32_load<GUARD>(f0, s + 2, KQ, x0, c0, a_base, b_base, a_row, a_kc,
-                      b_row, b_kc, KS, CS, m_on, n_on);
-    f32_products<GUARD>(acc, f1, m_on, n_on);
-  }
+// x rounded to tf32 (to nearest, ties away: its 13 low mantissa bits
+// rounded off), in integer arithmetic (cvt.rna.tf32 issues at a fraction
+// of the rate).
+__device__ __forceinline__ uint32_t tf32_round(uint32_t raw) {
+  return (raw + 0x1000u) & 0xffffe000u;
 }
 
-__global__ void __launch_bounds__(F32_THREADS, 1)
-stem_f32_kernel(const float* __restrict__ w, const float* __restrict__ g,
-                float* __restrict__ out, int H, int W, int O, int C,
-                F32Layout L) {
-  extern __shared__ __align__(128) float f32_smem[];
-  float* wE = f32_smem;
-  float* gB = f32_smem + L.gB;
-  const int Hp = H + K - 1, Wp = W + K - 1;
-  const int n = blockIdx.y;
-  const int KS = L.KS, WX = L.WX, CS = L.CS, KR = K * O;
-  const int KC = KS / 4;                  // 16-byte chunks of a row
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// The 3xTF32 split of an f32 word: hi = x rounded to tf32 and lo = x - hi
+// (exact in f32) rounded to tf32 too, so that the tensor cores, which read
+// a tf32 operand truncated (its 13 low bits ignored), read both exactly:
+// hi + lo is x to within 2^-22 of it, and the dropped lo*lo term is as
+// small. Rounding, not truncating, keeps the errors unbiased: truncated
+// parts err the same way in every product, so that a sum of many positive
+// products drifts by their count times the error of one.
+__device__ __forceinline__ void tf32_split(uint32_t raw, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_round(raw);
+  lo = tf32_round(__float_as_uint(__uint_as_float(raw) -
+                                  __uint_as_float(hi)));
+}
 
-  // 1. Once a block: gB[dx][c][k] = g[n, dy, dx, o, c] (k = dy*O + o), zero
-  // for k >= 7*O or c >= C; a thread a 16-byte chunk (4 k), lanes over
-  // consecutive c: coalesced loads, and the swizzle keeps the stores
-  // conflict-free. Every element is a 4-byte cp.async (zero-filled where
-  // there is no source), so all of a thread's loads are in flight at once.
-  const float* gn = g + (size_t)n * K * K * O * C;
-  const int g_chunks = K * KC * CS;
-  for (int i = threadIdx.x; i < g_chunks; i += F32_THREADS) {
-    const int c = i % CS, r = i / CS;     // r = dx*KC + j
-    const int dx = r / KC, j = r - dx * KC;
-    float* d = gB + (dx * CS + c) * KS + 4 * swizzle(j, c);
+// The taps of channels c0.. for one image: T[dx][c][chunk j] = g[n, dy, dx,
+// o, c0 + c] for k = 4j + q = dy*O + o, zero for k >= 7*O or c0 + c >= C.
+// A thread a chunk, lanes over channels (coalesced reads), every element a
+// 4-byte cp.async (zero-filled where there is no source). The chunks of a
+// row are swizzled (chunk ^ c & 7 within groups of 8) or the row takes an
+// odd number of chunks, so that ldmatrix's 8 rows fall in 8 bank groups.
+// The consumers' threads.
+__device__ __forceinline__ void f32_stage_taps(uint8_t* smem,
+                                               const float* gn, int O, int C,
+                                               int c0, const F32Plan& P) {
+  const int KR = K * O, chunks = K * P.KC * P.CS;
+  for (int i = threadIdx.x; i < chunks; i += F32_CONSUMERS) {
+    const int c = i % P.CS, r = i / P.CS;       // r = dx * KC + j
+    const int dx = r / P.KC, j = r - dx * P.KC;
+    const int at = P.RS == P.KC ? swizzle(j, c) : j;
+    float* d = reinterpret_cast<float*>(
+        smem + ((dx * P.CS + c) * P.RS + at) * 16);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int k = 4 * j + q;
-      const int dy = k / L.by_O, o = k - dy * O;
-      const bool real = k < KR && c < C;
-      cp_async4(d + q, real ? gn + ((dy * K + dx) * O + o) * C + c : gn,
+      const int k = 4 * j + q, dy = k / P.by_O, o = k - dy * O;
+      const bool real = k < KR && c0 + c < C;
+      cp_async4(d + q, real ? gn + ((dy * K + dx) * O + o) * C + c0 + c : gn,
                 real);
     }
   }
+}
 
-  // Warp (ty, xq, cq) owns output row y0+ty of each pair, the passes of 64
-  // pixels at 64*xq + 128*i and, of each 64 channels, the 32 at 32*cq.
-  const int ty = warp >> 2, xq = (warp >> 1) & 1, cq = warp & 1;
-  const uint32_t a_base = shared_address(wE + ty * WX * KS);
-  const uint32_t b_base = shared_address(gB);
-  // ldmatrix.x4 rows. A: lanes 0-15 give pixels 0-15 at k 0-3, lanes 16-31
-  // the same pixels at k 4-7 (matrices: a0, a1, a2, a3 of the tf32
-  // fragment). B: lanes 0-7 give channels 0-7 at k 0-3, 8-15 the same at
-  // k 4-7, 16-31 channels 8-15 likewise (b0, b1 of two n-tiles).
-  const int a_row = lane & 15, a_kc = lane >> 4;
-  const int b_row = (lane & 7) + 8 * (lane >> 4), b_kc = (lane >> 3) & 1;
-  const int quad = lane >> 2, t = lane & 3;
-  const int KQ = L.KO / 8;                // steps of 8 k
-  const int pairs = (H + TH_F32 - 1) / TH_F32;
-
-  // The block's pairs of output rows of image n: blockIdx.x, then every
-  // gridDim.x-th, so that g[n] is staged once for all of them.
-  for (int pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
-    const int y0 = pair * TH_F32;
-    const int rows = min(TH_F32, H - y0);
-
-    // 2. wE[ty][x][k] = w_pad[n, y0+ty+dy, x, o] for k < 7*O and x < W+6,
-    // zero elsewhere; lanes over consecutive pixels, 4-byte cp.asyncs as
-    // above. The previous pair's products are done with wE (the barrier at
-    // the loop's end); the first pair's wait also lands gB.
-    const float* wn = w + ((size_t)n * Hp + y0) * Wp * O;
-    const int w_chunks = rows * KC * WX;
-    for (int i = threadIdx.x; i < w_chunks; i += F32_THREADS) {
-      const int x = i % WX, r = i / WX;   // r = ty*KC + j
-      const int sty = r / KC, j = r - sty * KC;
-      float* d = wE + (sty * WX + x) * KS + 4 * swizzle(j, x);
+// Packs the operand of one output row y: slot[j][x] = the chunk of
+// w_pad[n, y+dy, x0+x, o] for k = 4j..4j+3 (k = dy*O + o; zero for k >=
+// 7*O or x0+x >= W+6) split into high parts, and at lo_at their low
+// parts, XP pixels. src is w_pad[n, y, x0]; its 7 rows (2.5 KB each at the
+// serving shape) are read through L1, where the 7 output rows that use
+// each of them find it; koff[j] holds chunk j's 4 element offsets from a
+// pixel's first element of row y (dy*row_len + o, or -1 past 7*O). The
+// producer's threads, lanes over pixels, each thread's loads issued
+// before its stores.
+template <int XP>
+__device__ __forceinline__ void f32_pack_row(uint8_t* slot, uint32_t lo_at,
+                                             const float* src, int valid_px,
+                                             const int4* koff, int O,
+                                             const F32Plan& P, int wt) {
+  constexpr int U = 3;                     // chunks a thread takes at once
+  const int chunks = P.KC * XP;
+  for (int i0 = wt; i0 < chunks; i0 += U * F32_WG) {
+    float v[U][4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k = 4 * j + q;
-        const int dy = k / L.by_O, o = k - dy * O;
-        const bool real = k < KR && x < Wp;
-        cp_async4(d + q, real ? wn + ((sty + dy) * Wp + x) * O + o : wn,
-                  real);
-      }
+    for (int m = 0; m < U; ++m) {
+      const int i = i0 + m * F32_WG;
+      const int j = i / XP, x = i - j * XP;
+      const int4 off = koff[min(j, P.KC - 1)];
+      const int offs[4] = {off.x, off.y, off.z, off.w};
+      const bool on = i < chunks && x < valid_px;
+      const float* px = src + x * O;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        v[m][q] = on && offs[q] >= 0 ? __ldg(px + offs[q]) : 0.f;
     }
-    cp_async_wait_all();
-    __syncthreads();
-
-    if (ty < rows) {
-      float* orow = out + ((size_t)n * H + y0 + ty) * W * C;
-      for (int x0 = 64 * xq; x0 < W; x0 += 128) {
-        for (int c0 = 32 * cq; c0 < C; c0 += 64) {
-          bool m_on[MT], n_on[NT];
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) m_on[mt] = x0 + 16 * mt < W;
+    for (int m = 0; m < U; ++m) {
+      const int i = i0 + m * F32_WG;
+      if (i >= chunks) break;
+      uint32_t hi[4], lo[4];
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) n_on[nt] = c0 + 8 * nt < C;
-
-          float acc[MT][NT][4];
-          bool full = true;
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) full = full && m_on[mt];
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) full = full && n_on[nt];
-          if (full)
-            f32_pass<false>(acc, KQ, x0, c0, a_base, b_base, a_row, a_kc,
-                            b_row, b_kc, KS, CS, m_on, n_on);
-          else
-            f32_pass<true>(acc, KQ, x0, c0, a_base, b_base, a_row, a_kc,
-                           b_row, b_kc, KS, CS, m_on, n_on);
-
-          // Lane (quad, t) holds pixels quad and quad+8 of each m-tile at
-          // channels 2t, 2t+1 of each n-tile: 8-byte stores when C is even.
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int x = x0 + 16 * mt + quad + 8 * h;
-              if (x >= W) continue;
-              float* op = orow + (size_t)x * C;
-#pragma unroll
-              for (int nt = 0; nt < NT; ++nt) {
-                const int c = c0 + 8 * nt + 2 * t;
-                const float v0 = acc[mt][nt][2 * h];
-                const float v1 = acc[mt][nt][2 * h + 1];
-                if ((C & 1) == 0) {
-                  if (c < C) *reinterpret_cast<float2*>(op + c) =
-                      make_float2(v0, v1);
-                } else {
-                  if (c < C) op[c] = v0;
-                  if (c + 1 < C) op[c + 1] = v1;
-                }
-              }
-            }
-          }
-        }
-      }
+      for (int q = 0; q < 4; ++q)
+        tf32_split(__float_as_uint(v[m][q]), hi[q], lo[q]);
+      *reinterpret_cast<uint4*>(slot + i * 16) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(slot + lo_at + i * 16) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
     }
-    __syncthreads();
   }
+}
+
+// Step s's A fragments of every dx (ldmatrix of the taps' row at at, dx
+// dx_bytes on), split in registers.
+__device__ __forceinline__ void f32_frags(uint32_t (&hi)[K][4],
+                                          uint32_t (&lo)[K][4], uint32_t at,
+                                          uint32_t dx_bytes, bool a_on) {
+#pragma unroll
+  for (int dx = 0; dx < K; ++dx) {
+    uint32_t raw[4];
+    ldmatrix_x4(raw, at + dx * dx_bytes);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      tf32_split(a_on ? raw[i] : 0u, hi[dx][i], lo[dx][i]);
+  }
+}
+
+// Step s's products, one group: for each dx, a_lo*b_hi, a_hi*b_lo and
+// a_hi*b_hi (the small terms first), b the packed row read dx pixels on
+// (b_hi, b_lo: its chunks 2s, 2s+1).
+template <int NR>
+__device__ __forceinline__ void f32_step(float (&acc)[NR],
+                                         const uint32_t (&hi)[K][4],
+                                         const uint32_t (&lo)[K][4],
+                                         uint64_t b_hi, uint64_t b_lo) {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int dx = 0; dx < K; ++dx) {
+    wgmma_tf32(acc, lo[dx], b_hi + dx);
+    wgmma_tf32(acc, hi[dx], b_lo + dx);
+    wgmma_tf32(acc, hi[dx], b_hi + dx);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// One output row of a warpgroup: acc = out^T (64 channels x PX pixels)
+// over the k8 steps s and, inside each, dx: a fixed order. A step's A
+// fragments (the taps of channels 16w.. at k 8s..8s+7 of each dx) are
+// loaded and split into one of two register sets while the step before
+// runs, after the step that last used the set is done; its 21 products
+// are issued behind one fence and waited for as one group.
+template <int PX>
+__device__ __forceinline__ void f32_row(float (&acc)[PX / 2], uint32_t a_at,
+                                        int a_row, int a_kc, bool a_on,
+                                        uint32_t hi_at, uint32_t lo_at,
+                                        const F32Plan& P) {
+#pragma unroll
+  for (int e = 0; e < PX / 2; ++e) acc[e] = 0.f;
+  pin(acc);
+  const uint32_t k_stride = (uint32_t)(PX + K - 1) * 16;
+  // In 16-byte units a step is two chunks of the packed row further on.
+  const uint64_t step = 2 * (k_stride >> 4);
+  const uint64_t b_hi = plain_desc(hi_at, k_stride);
+  const uint64_t b_lo = plain_desc(hi_at + lo_at, k_stride);
+  const uint32_t dx_bytes = (uint32_t)P.CS * P.RS * 16;
+  const bool swizzled = P.RS == P.KC;
+  auto tap_at = [&](int s) {
+    const int j = 2 * s + a_kc;
+    return a_at + (uint32_t)(swizzled ? swizzle(j, a_row) : j) * 16;
+  };
+  const int steps = P.KC / 2;
+  uint32_t hi0[K][4], lo0[K][4], hi1[K][4], lo1[K][4];
+  f32_frags(hi0, lo0, tap_at(0), dx_bytes, a_on);
+  for (int s = 0; s < steps; s += 2) {
+    f32_step(acc, hi0, lo0, b_hi + s * step, b_lo + s * step);
+    if (s + 1 < steps) {
+      wgmma_wait<1>();                 // step s-1, the last to read set 1
+      f32_frags(hi1, lo1, tap_at(s + 1), dx_bytes, a_on);
+      f32_step(acc, hi1, lo1, b_hi + (s + 1) * step, b_lo + (s + 1) * step);
+    }
+    if (s + 2 < steps) {
+      wgmma_wait<1>();                 // step s, the last to read set 0
+      f32_frags(hi0, lo0, tap_at(s + 2), dx_bytes, a_on);
+    }
+  }
+  wgmma_wait<0>();
+  pin(acc);
+}
+
+// Stores a row's sums (lane l of warp w: channels 16w + l/4 (+8), pixels
+// 8j + 2(l%4) (+1)): a warp's store covers 8 channels of 4 pixels, four
+// whole 32-byte sectors. orow is out[n, y, x0, c0]; px pixels and cc
+// channels of the tile are real.
+template <int PX>
+__device__ __forceinline__ void f32_store(const float (&acc)[PX / 2],
+                                          float* orow, int px, int cc, int C,
+                                          int warp, int lane) {
+#pragma unroll
+  for (int j = 0; j < PX / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 16 * warp + lane / 4 + 8 * h;
+        const int x = 8 * j + 2 * (lane % 4) + e;
+        if (c < cc && x < px) orow[(size_t)x * C + c] = acc[4 * j + 2 * h + e];
+      }
+}
+
+template <int PX>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+stem_f32_kernel(const float* __restrict__ w, const float* __restrict__ g,
+                float* __restrict__ out, int H, int W, int O, int C,
+                F32Plan P) {
+  constexpr int XP = PX + K - 1;
+  extern __shared__ __align__(128) uint8_t f32_smem[];
+  const uint32_t base = shared_address(f32_smem);
+  const int tid = threadIdx.x;
+  // The warpgroup, read through a shuffle so that ptxas sees it uniform
+  // across the warp (the products' issue may not sit on a divergent path).
+  const int wg = __shfl_sync(0xffffffffu, tid / F32_WG, 0);
+  const int wt = tid % F32_WG, warp = wt / 32, lane = tid % 32;
+  const int Hp = H + K - 1, Wp = W + K - 1;
+  const int row_len = Wp * O;
+  const uint32_t lo_at = P.slot / 2;
+  const uint32_t full = base + P.bars_at;          // [ring]: a row is packed
+  const uint32_t empty = full + 8 * P.ring;        // [ring]: its products done
+  if (tid == 0) {
+    for (int r = 0; r < P.ring; ++r) {
+      mbar_init(full + 8 * r, 1);
+      mbar_init(empty + 8 * r, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int per_image = P.CT * P.XT * P.bands;
+  auto unit = [&](int u, int& n, int& ct, int& xt, int& ya) {
+    n = u / per_image;
+    int r = u - n * per_image;
+    ct = r / (P.XT * P.bands);
+    r -= ct * P.XT * P.bands;
+    xt = r / P.bands;
+    ya = (r - xt * P.bands) * P.RB;
+  };
+
+  uint32_t q = 0;       // output rows of the block's earlier units
+  if (wg == 2) {
+    // The producer: every output row of the block's units, in order, into
+    // ring slot (q+i) % ring once the consumer of its previous row is done
+    // with it. Few registers: the consumers get the rest.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    int* koff = reinterpret_cast<int*>(f32_smem + P.koff_at);
+    for (int k = wt; k < 4 * P.KC; k += F32_WG) {
+      const int dy = k / P.by_O;
+      koff[k] = k < K * O ? dy * row_len + k - dy * O : -1;
+    }
+    asm volatile("bar.sync 3, 128;\n" ::: "memory");
+    for (int u = blockIdx.x; u < P.units; u += gridDim.x) {
+      int n, ct, xt, ya;
+      unit(u, n, ct, xt, ya);
+      const int rows = min(P.RB, H - ya), x0 = xt * PX;
+      const float* wn = w + ((size_t)n * Hp * Wp + x0) * O;
+      for (int i = 0; i < rows; ++i) {
+        const uint32_t s = q + i, rs = s % P.ring;
+        mbar_wait(empty + 8 * rs, ((s / P.ring) & 1) ^ 1);
+        f32_pack_row<XP>(f32_smem + P.taps + rs * P.slot, lo_at,
+                         wn + (size_t)(ya + i) * row_len, Wp - x0,
+                         reinterpret_cast<const int4*>(koff), O, P, wt);
+        fence_async_shared();
+        asm volatile("bar.sync 3, 128;\n" ::: "memory");
+        if (wt == 0) mbar_arrive(full + 8 * rs);
+      }
+      q += rows;
+    }
+    return;
+  }
+
+  // The consumers: warpgroup wg takes rows ya+wg, ya+wg+2, ... of each
+  // unit, after the two have staged the unit's taps.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  // This lane's ldmatrix row of the taps: lanes 0-15 give channels 16w +
+  // 0..15 at k 0-3 of a step, lanes 16-31 the same at k 4-7 (matrices a0,
+  // a1, a2, a3 of the fragment); rows past CS read row CS-1 and are zeroed.
+  const int a_row = 16 * warp + (lane & 15), a_kc = lane >> 4;
+  const bool a_on = a_row < P.CS;
+  const uint32_t a_at = base + (uint32_t)(min(a_row, P.CS - 1) * P.RS) * 16;
+  for (int u = blockIdx.x; u < P.units; u += gridDim.x) {
+    int n, ct, xt, ya;
+    unit(u, n, ct, xt, ya);
+    const int rows = min(P.RB, H - ya);
+    const int c0 = ct * F32_NC, x0 = xt * PX;
+    const int px = min(PX, W - x0), cc = min(F32_NC, C - c0);
+    // Both are done with the previous unit's taps; then the unit's.
+    asm volatile("bar.sync 4, 256;\n" ::: "memory");
+    f32_stage_taps(f32_smem, g + (size_t)n * K * K * O * C, O, C, c0, P);
+    cp_async_wait_all();
+    asm volatile("bar.sync 4, 256;\n" ::: "memory");
+    for (int i = wg; i < rows; i += 2) {
+      const uint32_t s = q + i, rs = s % P.ring;
+      mbar_wait(full + 8 * rs, (s / P.ring) & 1);
+      float acc[PX / 2];
+      f32_row<PX>(acc, a_at, a_row, a_kc, a_on,
+                  base + P.taps + rs * P.slot, lo_at, P);
+      // Every warp's products are done with the slot: one thread frees it.
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+      if (wt == 0) mbar_arrive(empty + 8 * rs);
+      f32_store<PX>(acc, out + (((size_t)n * H + ya + i) * W + x0) * C + c0,
+                    px, cc, C, warp, lane);
+    }
+    q += rows;
+  }
+}
+
+struct F32Launch {
+  F32Plan plan;
+  int grid;
+};
+
+cudaError_t f32_launch_plan(int N, int H, int W, int O, int C,
+                            F32Launch& L) {
+  int device = 0;
+  DeviceInfo info;
+  cudaError_t err = device_info(device, info);
+  if (err != cudaSuccess) return err;
+  if (!f32_plan(N, H, W, O, C, info.sms, info.max_smem, L.plan))
+    return cudaErrorInvalidValue;
+  L.grid = std::min(L.plan.units, info.sms);
+  return L.plan.PX == 64
+             ? allow_smem((const void*)stem_f32_kernel<64>, KERNEL_F32_64,
+                          device, L.plan.total)
+             : allow_smem((const void*)stem_f32_kernel<32>, KERNEL_F32_32,
+                          device, L.plan.total);
 }
 
 cudaError_t launch_f32(const void* w, const void* g, void* out, int N, int H,
                        int W, int O, int C, cudaStream_t stream) {
-  const F32Layout L = f32_layout(W, O, C);
-  const size_t smem = sizeof(float) * L.total;
-  if (smem > INT_MAX) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      stem_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, so no later launch check reports it
-    return err;
-  }
-  // One block an SM (its shared memory), all blocks in one wave where the
-  // images allow: an image's row pairs shared among sms / N blocks.
-  int device = 0, sms = 1;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int pairs = (H + TH_F32 - 1) / TH_F32;
-  dim3 grid(std::max(1, std::min(pairs, sms / N)), N);
-  stem_f32_kernel<<<grid, F32_THREADS, smem, stream>>>(
-      static_cast<const float*>(w), static_cast<const float*>(g),
-      static_cast<float*>(out), H, W, O, C, L);
+  F32Launch L;
+  const cudaError_t err = f32_launch_plan(N, H, W, O, C, L);
+  if (err != cudaSuccess) return err;
+  const float* wf = static_cast<const float*>(w);
+  const float* gf = static_cast<const float*>(g);
+  float* of = static_cast<float*>(out);
+  if (L.plan.PX == 64)
+    stem_f32_kernel<64><<<L.grid, F32_THREADS, L.plan.total, stream>>>(
+        wf, gf, of, H, W, O, C, L.plan);
+  else
+    stem_f32_kernel<32><<<L.grid, F32_THREADS, L.plan.total, stream>>>(
+        wf, gf, of, H, W, O, C, L.plan);
   return cudaGetLastError();
 }
 
@@ -1084,7 +1237,8 @@ int sg_stem_tc_config(int N, int H, int W, int O, int C, int* info) {
   cudaError_t err = tc_launch_plan(N, H, W, O, C, L);
   cudaFuncAttributes a;
   int blocks = 0;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, stem_tc_kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&a, (const void*)stem_tc_kernel);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, stem_tc_kernel, TC_THREADS, L.plan.total);
@@ -1097,6 +1251,34 @@ int sg_stem_tc_config(int N, int H, int W, int O, int C, int* info) {
   info[5] = L.plan.RB;
   info[6] = (int)a.localSizeBytes;
   info[7] = TC_THREADS;
+  return 0;
+}
+
+// The f32 kernel's launch at this shape on the current card, launching
+// nothing: info[0..7] = registers a thread, dynamic shared memory (bytes),
+// blocks an SM, grid, pixels a band, output rows a band, local memory a
+// thread (bytes), threads a block. Returns a CUDA error code.
+int sg_stem_f32_config(int N, int H, int W, int O, int C, int* info) {
+  F32Launch L;
+  cudaError_t err = f32_launch_plan(N, H, W, O, C, L);
+  if (err != cudaSuccess) return err;
+  const void* kernel = L.plan.PX == 64 ? (const void*)stem_f32_kernel<64>
+                                       : (const void*)stem_f32_kernel<32>;
+  cudaFuncAttributes a;
+  int blocks = 0;
+  err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, F32_THREADS, L.plan.total);
+  if (err != cudaSuccess) return err;
+  info[0] = a.numRegs;
+  info[1] = (int)L.plan.total;
+  info[2] = blocks;
+  info[3] = L.grid;
+  info[4] = L.plan.PX;
+  info[5] = L.plan.RB;
+  info[6] = (int)a.localSizeBytes;
+  info[7] = F32_THREADS;
   return 0;
 }
 

@@ -6,13 +6,13 @@
 It replaces the TPU kernel ``stem_pallas`` of the JAX package
 (``ops/pallas/stem.py``). ``stem`` launches the kernel for a CUDA tensor and
 runs ``stem_plain`` for a CPU tensor; it never falls back from one to the
-other. The dtype picks the kernel, both on the tensor cores: bfloat16
-(serving; Hopper's warpgroup products, ``wgmma.mma_async``, fed by bulk
-copies on mbarriers; counted in ``LAUNCHES["stem_tc"]`` too) and float32
-in 3xTF32 (``mma.sync``: each operand split into a TF32 high and low part,
-three products summed in f32; counted in ``LAUNCHES["stem_f32"]`` too).
-``LAUNCHES["stem"]`` counts every launch; ``tc_launch_config`` reports
-the bf16 kernel's launch at a shape. The kernels are
+other. The dtype picks the kernel, both on Hopper's warpgroup products
+(``wgmma.mma_async``) fed through rings of packed rows on mbarriers:
+bfloat16 (serving; counted in ``LAUNCHES["stem_tc"]`` too) and float32 in
+3xTF32 (each operand split into a TF32 high and low part, three products
+summed in f32; counted in ``LAUNCHES["stem_f32"]`` too). ``LAUNCHES["stem"]``
+counts every launch; ``tc_launch_config`` and ``f32_launch_config``
+report each kernel's launch at a shape. The kernels are
 forward-only (test mode, serving): the wrapper raises rather than detach a
 graph. Training runs ``stem_patches``, the JAX
 package's differentiable ``patches`` form, on every device.
@@ -27,6 +27,32 @@ import torch.nn.functional as F
 from scene_generation_tpu_torch.ops import _cuda
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_CONFIG_KEYS = {
+    "sg_stem_tc_config": ("registers", "dynamic_smem_bytes", "blocks_per_sm",
+                          "grid", "ring_rows", "band_rows", "local_bytes",
+                          "threads"),
+    "sg_stem_f32_config": ("registers", "dynamic_smem_bytes",
+                           "blocks_per_sm", "grid", "band_pixels",
+                           "band_rows", "local_bytes", "threads"),
+}
+_ARGTYPES = {
+    "sg_stem": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    **{name: [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+       for name in _CONFIG_KEYS},
+}
+_bound: dict = {}
+
+
+def _fn(name: str):
+    """``name`` of the stem library, its argument types set once a
+    process."""
+    fn = _bound.get(name)
+    if fn is None:
+        fn = getattr(_cuda.library("stem"), name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _bound[name] = fn
+    return fn
 
 
 def stem_patches(weights: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -67,11 +93,7 @@ def _launch(weights: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     h, w = hp - 6, wp - 6
     if h < 1 or w < 1:
         raise ValueError(f"weights {tuple(weights.shape)} smaller than 7x7")
-    lib = _cuda.library("stem")
-    fn = lib.sg_stem
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _fn("sg_stem")
     out = torch.empty((n, h, w, c), dtype=weights.dtype,
                       device=weights.device)
     stream = torch.cuda.current_stream(weights.device).cuda_stream
@@ -79,15 +101,23 @@ def _launch(weights: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
             _DTYPE_CODES[weights.dtype], stream)
     # A shape whose tiles exceed a block's shared memory is refused by the
     # launch and raised here.
-    _cuda.check(lib, rc, f"stem kernel at W={w}, O={o}, C={c}")
+    if rc:
+        _cuda.check(_cuda.library("stem"), rc,
+                    f"stem kernel at W={w}, O={o}, C={c}")
     _cuda.LAUNCHES["stem"] += 1
     _cuda.LAUNCHES["stem_tc" if weights.dtype == torch.bfloat16
                    else "stem_f32"] += 1
     return out
 
 
-_TC_CONFIG_KEYS = ("registers", "dynamic_smem_bytes", "blocks_per_sm", "grid",
-                   "ring_rows", "band_rows", "local_bytes", "threads")
+def _launch_config(name: str, n: int, h: int, w: int, o: int,
+                   c: int) -> dict:
+    info = (ctypes.c_int * len(_CONFIG_KEYS[name]))()
+    rc = _fn(name)(n, h, w, o, c, info)
+    if rc:
+        _cuda.check(_cuda.library("stem"), rc,
+                    f"stem kernel config at W={w}, O={o}, C={c}")
+    return dict(zip(_CONFIG_KEYS[name], info))
 
 
 def tc_launch_config(n: int, h: int, w: int, o: int, c: int) -> dict:
@@ -96,14 +126,15 @@ def tc_launch_config(n: int, h: int, w: int, o: int, c: int) -> dict:
     thread, dynamic shared memory, blocks an SM, grid, packed input rows
     resident, output rows a band, local memory a thread and threads a
     block. Raises where the kernel would refuse the shape."""
-    lib = _cuda.library("stem")
-    fn = lib.sg_stem_tc_config
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    info = (ctypes.c_int * len(_TC_CONFIG_KEYS))()
-    _cuda.check(lib, fn(n, h, w, o, c, info),
-                f"stem kernel config at W={w}, O={o}, C={c}")
-    return dict(zip(_TC_CONFIG_KEYS, info))
+    return _launch_config("sg_stem_tc_config", n, h, w, o, c)
+
+
+def f32_launch_config(n: int, h: int, w: int, o: int, c: int) -> dict:
+    """The f32 kernel's launch, as ``tc_launch_config`` reports the bf16
+    one: registers a thread, dynamic shared memory, blocks an SM, grid,
+    pixels and output rows a band, local memory a thread and threads a
+    block. Raises where the kernel would refuse the shape."""
+    return _launch_config("sg_stem_f32_config", n, h, w, o, c)
 
 
 def stem(weights: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -7,6 +7,10 @@ file imports no JAX, so it runs where JAX is not installed:
 
 (``--noconftest``: the suite's conftest.py configures JAX.)
 """
+import ctypes
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -20,8 +24,8 @@ from scene_generation_tpu_torch.ops.crop import (crop, crop_bbox_batch,
                                                  crop_fwd, crop_fwd_plain)
 from scene_generation_tpu_torch.ops.layout import compositor_inputs
 from scene_generation_tpu_torch.ops.sampling import crop_matrices
-from scene_generation_tpu_torch.ops.stem import (stem, stem_plain,
-                                                 tc_launch_config)
+from scene_generation_tpu_torch.ops.stem import (f32_launch_config, stem,
+                                                 stem_plain, tc_launch_config)
 
 pytestmark = pytest.mark.cuda
 
@@ -89,6 +93,213 @@ def test_stem_f32_kernel_matches_plain_and_repeats(device, n, h, w, o, c):
     assert torch.equal(got, again)
     want = stem_plain(w_t, g_t)
     assert float((got - want).abs().max()) <= 1e-4
+
+
+def _f32_stem_case(device, n, h, w, o, c, seed=0):
+    """A field in [0, 1] (claimed mask weights) and taps N(0, 0.1^2):
+    outputs of order 1, held to phase 3's 1e-4."""
+    rng = np.random.RandomState(seed)
+    w_t = torch.from_numpy(rng.rand(n, h + 6, w + 6, o).astype(np.float32))
+    g_t = torch.from_numpy(0.1 * rng.randn(n, 7, 7, o, c).astype(np.float32))
+    return w_t.to(device), g_t.to(device)
+
+
+def _assert_f32_stem_matches_plain(w_t, g_t, got, tol=1e-4):
+    want = stem_plain(w_t, g_t)
+    assert got.shape == want.shape
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= tol
+
+
+# (N, H, W, O, C) at the edges of the f32 kernel's tiles: W of 63, 65 (a
+# last band of one pixel) and 129, W != H; C of 9 (odd), 40, 72 (a second
+# channel tile of 8) and 6 (16 tap rows staged); O = 1 (7 of 8 k), O = 10
+# (72 k: tap rows of an odd number of chunks), O = 18 with 4 channels (126
+# k, 16 tap rows) and O = 11 at 64 channels (bands of 32 pixels, since 64
+# do not fit: 32, 32 and 6 of W = 70); 16 images of 8 rows
+# and 150 small images (more bands than SMs: blocks walk several).
+STEM_F32_SHAPES = [(2, 20, 120, 9, 64), (1, 33, 65, 9, 64),
+                   (2, 12, 63, 9, 40), (1, 12, 129, 9, 72),
+                   (1, 21, 130, 5, 9), (2, 20, 96, 1, 6),
+                   (2, 9, 17, 10, 24), (1, 12, 40, 18, 4),
+                   (1, 12, 70, 11, 64), (16, 8, 16, 9, 64),
+                   (150, 12, 20, 9, 64)]
+
+
+@pytest.mark.parametrize("shape", STEM_F32_SHAPES)
+def test_stem_f32_kernel_matches_plain_on_ragged_edges(device, shape):
+    w_t, g_t = _f32_stem_case(device, *shape)
+    before = _cuda.LAUNCHES["stem_f32"]
+    got = stem(w_t, g_t)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["stem_f32"] == before + 1
+    _assert_f32_stem_matches_plain(w_t, g_t, got)
+
+
+def test_stem_f32_kernel_bands_with_a_last_band_of_one_row(device):
+    """16 images of 22 rows: bands of 3 rows, the last of 1 (on a card of
+    132 SMs; the test reads the launch's band rows)."""
+    n, h, w, o, c = 16, 22, 40, 9, 64
+    config = f32_launch_config(n, h, w, o, c)
+    w_t, g_t = _f32_stem_case(device, n, h, w, o, c, seed=3)
+    got = stem(w_t, g_t)
+    torch.cuda.synchronize()
+    if torch.cuda.get_device_properties(0).multi_processor_count == 132:
+        assert h % config["band_rows"] == 1
+    _assert_f32_stem_matches_plain(w_t, g_t, got)
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+def test_stem_f32_kernel_takes_inputs_at_any_element_offset(device, offset):
+    """Contiguous views that start off a 16-byte boundary give the aligned
+    inputs' output bit for bit."""
+    w_t, g_t = _f32_stem_case(device, 2, 20, 33, 9, 16)
+    views = []
+    for t in (w_t, g_t):
+        flat = torch.zeros(t.numel() + offset, dtype=t.dtype, device=device)
+        flat[offset:] = t.reshape(-1)
+        views.append(flat[offset:].view(t.shape))
+    assert views[0].data_ptr() % 16 != 0 and views[0].is_contiguous()
+    got = stem(*views)
+    torch.cuda.synchronize()
+    assert torch.equal(got, stem(w_t, g_t))
+    _assert_f32_stem_matches_plain(w_t, g_t, got)
+
+
+@pytest.mark.parametrize("x0", [0, 6, 37, 63, 64, 69])
+def test_stem_f32_kernel_sends_each_dx_to_its_own_column(device, x0):
+    """A field that is zero but at padded column x0: output column x0 - dx
+    holds the dx taps alone, so a packed row read at a wrong pixel offset
+    (or a band's halo read wrong) shows as a wrong or empty column."""
+    n, h, w, o, c = 2, 10, 100, 9, 64
+    rng = np.random.RandomState(4)
+    field = np.zeros((n, h + 6, w + 6, o), np.float32)
+    field[:, :, x0] = rng.uniform(0.5, 1.0, (n, h + 6, o))
+    taps = rng.uniform(-1, 1, (n, 7, 7, o, c)).astype(np.float32)
+    w_t = torch.from_numpy(field).to(device)
+    g_t = torch.from_numpy(taps).to(device)
+    got = stem(w_t, g_t)
+    torch.cuda.synchronize()
+    want = stem_plain(w_t, g_t)
+    _assert_f32_stem_matches_plain(w_t, g_t, got)
+    lit = [x0 - dx for dx in range(7) if 0 <= x0 - dx < w]
+    assert bool((want[:, :, lit].abs().amax(dim=(0, 1, 3)) > 0).all())
+    assert bool((got[:, :, lit].abs().amax(dim=(0, 1, 3)) > 0).all())
+    dark = [x for x in range(w) if x not in lit]
+    assert float(got[:, :, dark].abs().max()) == 0.0
+
+
+def _tf32_truncated(x: np.ndarray) -> np.ndarray:
+    return (x.astype(np.float32).view(np.uint32)
+            & np.uint32(0xffffe000)).view(np.float32)
+
+
+def test_wgmma_tf32_reads_the_high_19_bits_of_each_operand(device,
+                                                           tmp_path):
+    """What the f32 stem kernel builds on, asked of the card: a tf32
+    warpgroup product (A from registers, B from shared memory in the
+    kernel's non-swizzled K-major layout, the k stride in the descriptor's
+    leading offset) reads each operand truncated to tf32, its 13 low
+    mantissa bits ignored, neither rounded nor read whole. So a raw f32
+    value is its own high part and x - trunc(x) the low one. One product a
+    sum (diagonal operands) gives the products exactly; then full ones."""
+    src = Path(__file__).resolve().parent / "csrc" / "wgmma_tf32_probe.cu"
+    lib_path = tmp_path / "probe.so"
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(lib_path),
+                    str(src)], check=True, capture_output=True)
+    probe = ctypes.CDLL(str(lib_path)).wgmma_tf32_probe
+    probe.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    probe.restype = ctypes.c_int
+    rng = np.random.RandomState(7)
+    diagonal = np.arange(8)[None] == (np.arange(64) % 8)[:, None]
+    for dense in (False, True):
+        a = rng.uniform(1, 2, (64, 8)).astype(np.float32)
+        b = rng.uniform(-2, 2, (64, 8)).astype(np.float32)
+        if not dense:
+            a, b = a * diagonal, b * diagonal
+        a_t, b_t = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+        d = torch.zeros(64, 64, device=device)
+        assert probe(a_t.data_ptr(), b_t.data_ptr(), d.data_ptr(), 1) == 0
+        got = d.cpu().double().numpy()
+        truncated = (_tf32_truncated(a).astype(np.float64)
+                     @ _tf32_truncated(b).astype(np.float64).T)
+        whole = a.astype(np.float64) @ b.astype(np.float64).T
+        if dense:      # eight products summed in f32 on the card
+            assert np.abs(got - truncated).max() <= 2e-6 * np.abs(
+                truncated).max()
+        else:
+            assert np.array_equal(got, truncated)
+        assert np.abs(got - whole).max() > 1e-4
+
+
+def test_stem_f32_kernel_keeps_the_low_13_bits(device):
+    """Field 1 + d and taps +-(1 + d) / 8 with d below 2^-11 (in the 13
+    mantissa bits a tf32 operand does not read): plain TF32 would sum
+    +-1/8 and miss the d terms by about 1e-3 or more; 3xTF32 keeps them to
+    within phase 3's 1e-4 (outputs up to about 10)."""
+    n, h, w, o, c = 2, 16, 70, 9, 64
+    rng = np.random.RandomState(5)
+    field = (1 + rng.uniform(0, 2 ** -11, (n, h + 6, w + 6, o))).astype(
+        np.float32)
+    taps = ((1 + rng.uniform(0, 2 ** -11, (n, 7, 7, o, c))).astype(
+        np.float32) * rng.choice([-0.125, 0.125], (n, 7, 7, o, c))).astype(
+        np.float32)
+    assert (_tf32_truncated(field) == 1).all()
+    assert (np.abs(_tf32_truncated(taps)) == 0.125).all()
+    w_t = torch.from_numpy(field).to(device)
+    g_t = torch.from_numpy(taps).to(device)
+    got = stem(w_t, g_t)
+    torch.cuda.synchronize()
+    want = stem_plain(w_t, g_t)
+    tf32 = stem_plain(torch.from_numpy(_tf32_truncated(field)).double(),
+                      torch.from_numpy(_tf32_truncated(taps)).double())
+    assert float((tf32 - want.double().cpu()).abs().max()) > 1e-3
+    _assert_f32_stem_matches_plain(w_t, g_t, got)
+
+
+@pytest.mark.parametrize("n", [1, 12, 16])
+def test_stem_f32_kernel_is_bitwise_repeatable(device, n):
+    """A request (1), a val sweep's batch (12) and a serving batch (16)."""
+    w_t, g_t = _f32_stem_case(device, n, 128, 128, 9, 64, seed=6)
+    first = stem(w_t, g_t)
+    assert torch.equal(first, stem(w_t, g_t))
+    _assert_f32_stem_matches_plain(w_t, g_t, first)
+
+
+@pytest.mark.parametrize("n", [12, 16])
+def test_stem_f32_kernel_launch_config(device, n):
+    """At a val sweep's and at the serving shape: one block an SM, no
+    local memory, bands of 64 pixels, every band in one wave."""
+    config = f32_launch_config(n, 128, 128, 9, 64)
+    props = torch.cuda.get_device_properties(0)
+    assert config["blocks_per_sm"] == 1
+    assert config["local_bytes"] == 0
+    assert config["threads"] == 384
+    assert config["band_pixels"] == 64
+    assert config["grid"] <= props.multi_processor_count
+    bands = -(-128 // config["band_rows"])
+    assert n * 2 * bands == config["grid"]
+    assert config["dynamic_smem_bytes"] <= props.shared_memory_per_block_optin
+    # 77 k a pixel at 64 channels: bands of 32 pixels fit, 64 do not.
+    assert f32_launch_config(1, 12, 70, 11, 64)["band_pixels"] == 32
+
+
+def test_stem_f32_kernel_refuses_a_shape_beyond_its_tiles(device):
+    """O = 40 weight channels: 280 k a pixel, whose taps and packed rows
+    exceed a block's shared memory even in bands of 32 pixels. The launch
+    is refused with the shape in the message, nothing is computed some
+    other way, and the next launch runs clean."""
+    w_t = torch.rand(1, 38, 38, 40, device=device)
+    g_t = torch.rand(1, 7, 7, 40, 16, device=device)
+    before = _cuda.LAUNCHES["stem_f32"]
+    with pytest.raises(RuntimeError, match=r"stem kernel at W=32, O=40, C=16"):
+        stem(w_t, g_t)
+    with pytest.raises(RuntimeError,
+                       match=r"stem kernel config at W=32, O=40, C=16"):
+        f32_launch_config(1, 32, 32, 40, 16)
+    assert _cuda.LAUNCHES["stem_f32"] == before
+    w_t, g_t = _f32_stem_case(device, 1, 8, 8, 3, 4)
+    _assert_f32_stem_matches_plain(w_t, g_t, stem(w_t, g_t))
 
 
 def _bf16_stem_case(device, n, h, w, o, c, scale=1.0, seed=0):

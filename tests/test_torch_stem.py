@@ -9,6 +9,10 @@ against the plain version on the card by tests/test_torch_kernels_cuda.py.
 Tolerances: f32 sums of 49*O products of O(1) values, 1e-4 absolute; bf16
 outputs are compared within two bf16 ulps of their magnitude.
 """
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -84,3 +88,18 @@ def test_factored_stemconv_matches_dense(cfg):
             0, 2, 3, 1).contiguous(), vecs)
     np.testing.assert_allclose(fact.permute(0, 3, 1, 2).numpy(),
                                dense.numpy(), atol=2e-5, rtol=1e-5)
+
+
+def test_stem_times_needs_a_card():
+    """stem_times.py measures only on a GPU: without one it exits 2 and
+    prints no result."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "CUDA_VISIBLE_DEVICES")}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, "stem_times.py"], cwd=repo,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 2
+    assert proc.stdout == ""
+
