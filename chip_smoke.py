@@ -13,9 +13,8 @@ inputs that require grad, serves HTTP requests and a batch-16 forward
 through the default ``Config()`` (the factored stem, bf16: the
 tensor-core stem kernel), runs the dense-stem variant (the compositor
 kernel) and the GT-appearance forward (``forward_batch(features=None)``:
-the crop forward kernel), compares the card with the CPU in f32, and
-times serving (CUDA events, then a ``torch.profiler`` breakdown of the
-device's time). Then it trains: a few steps of the default ``Config()``
+the crop forward kernel) and compares the card with the CPU in f32.
+Then it trains: a few steps of the default ``Config()``
 at batch 12 through ``train_step`` (the crop kernels; the box gradients'
 kernel must not run), timed and profiled; one f32 train step on the
 card against the same step on the CPU; the kernels' device times; and
@@ -108,7 +107,6 @@ from scene_generation_tpu_torch.trainer.train_state import create_train_state
 
 BATCH = 16
 SEED = 0
-TRACE_STEPS = 5
 TRAIN_BATCH = 12
 TRAIN_STEPS = 3
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
@@ -853,7 +851,7 @@ def check_forward_only_guards() -> None:
     say("forward-only guards", refused=refused)
 
 
-# --- phases 4-7: the model --------------------------------------------------
+# --- phases 4-6: the model --------------------------------------------------
 
 def with_model(cfg: Config, **kw) -> Config:
     return cfg.replace(model=dataclasses.replace(cfg.model, **kw))
@@ -1116,53 +1114,6 @@ def device_rows(prof) -> list:
 def device_ms(event) -> float:
     us = getattr(event, "self_device_time_total", None)
     return (event.self_cuda_time_total if us is None else us) / 1e3
-
-
-def serving_rate(ckpts: dict) -> dict:
-    """Phase 7 (informational): per variant's checkpoint, the b16 bf16
-    forward's time by CUDA events around the whole model call, then
-    TRACE_STEPS forwards under torch.profiler: the device's busy time (its
-    kernels' and copies' own times; the host-side aten rows would count
-    them twice), its idle share over the forward, and the costliest
-    kernels."""
-    from torch.profiler import ProfilerActivity, profile
-    rates = {}
-    for variant, ckpt in ckpts.items():
-        server = Server(ckpt, device="cuda")
-        model = server.model.model
-        inputs = model_inputs(server.model.cfg, BATCH, "cuda")
-
-        def fwd():
-            with torch.no_grad():
-                model(**inputs)
-
-        ms = cuda_ms(fwd, warmup=3, reps=10)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(TRACE_STEPS):
-                fwd()
-            torch.cuda.synchronize()
-        rows = device_rows(prof)
-        busy = sum(device_ms(e) for e in rows) / TRACE_STEPS
-        rate = dict(ms=ms, img_per_s=BATCH / ms * 1e3)
-        if rows:
-            check(busy <= ms, f"{variant}: device busy {busy} ms exceeds "
-                  f"the forward's {ms} ms")
-            rate.update(device_busy_ms=busy, idle_share=1 - busy / ms,
-                        kernel_kinds=len(rows),
-                        top=[dict(name=e.key[:80],
-                                  ms=device_ms(e) / TRACE_STEPS,
-                                  calls=e.count / TRACE_STEPS)
-                             for e in rows[:8]])
-        else:
-            rate.update(device_busy_ms="not measured: the profiler saw no "
-                        "device time")
-        rates[variant] = rate
-        del server, model
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    say("serving rate", batch=BATCH, dtype="bfloat16",
-        peak_memory_gib=peak_gb, **rates)
-    return rates
 
 
 # --- phases 8-9: training ---------------------------------------------------
@@ -2498,7 +2449,6 @@ def main(argv=None) -> int:
         dense_launches = dense_forward(ckpts["dense"])
         gt_appearance(ckpts["factored"])
         card_vs_cpu(model_cpu)
-        rates = serving_rate(ckpts)
     del model_cpu
     with torch_default_tf32():
         train = train_on_card()
@@ -2612,7 +2562,6 @@ def main(argv=None) -> int:
             crop_rows[("crop_bwd_boxes", 32, torch.float32)]),
     ]
     say("done", seconds=time.perf_counter() - t0,
-        img_per_s={k: v["img_per_s"] for k, v in rates.items()},
         train_ms_per_step=train["ms_per_step"],
         train_cli_ms_per_step=cli["timing_ms_per_step"], eval_seconds=eval_s,
         eval_stage_seconds={k: v["seconds"] for k, v in evals.items()},

@@ -12,6 +12,7 @@ from scene_generation_tpu_torch.config import Config
 from scene_generation_tpu_torch.convert import load_checkpoint
 from scene_generation_tpu_torch.data.batching import Batch, Example, collate
 from scene_generation_tpu_torch.models.model import ModelOutput, SceneModel
+from scene_generation_tpu_torch.profiling import span
 
 
 class InferenceModel:
@@ -66,30 +67,38 @@ class InferenceModel:
         all-zero ``features_mask`` gives every object its repr_net
         appearance; ``features=None`` gives every object the appearance
         encoded from its crop of ``batch.imgs`` at its GT box (the crop
-        kernel on the card)."""
+        kernel on the card). The noise draw and the host-to-device copies
+        run in the profiler range ``infer/inputs``, the model call in
+        ``infer/model`` (``profiling.span``)."""
         mc = self.cfg.model
-        noise = torch.randn(mc.mask_noise_dim,
-                            generator=generator or self.generator)
-        n, o = batch.objs.shape
-        attributes = self._tensor(batch.attributes, torch.float32)
-        if not use_gt_attributes:
-            attributes = torch.zeros_like(attributes)
-        if features is None:
-            feats = fmask = None
-        else:
-            feats = self._tensor(features, torch.float32)
-            fmask = (torch.ones((n, o), device=self.device)
-                     if features_mask is None
-                     else self._tensor(features_mask, torch.float32))
-        return self.model(
-            self._tensor(batch.objs), self._tensor(batch.triples), attributes,
-            self._tensor(batch.obj_mask, torch.float32),
-            self._tensor(batch.triple_mask, torch.float32),
-            noise.to(self.device), imgs=self._tensor(batch.imgs),
-            boxes_gt=self._tensor(batch.boxes, torch.float32),
-            masks_gt=(self._tensor(batch.masks, torch.float32)
-                      if use_gt_masks else None),
-            use_gt_box=use_gt_boxes, features=feats, features_mask=fmask)
+        with span("infer/inputs"):
+            noise = torch.randn(mc.mask_noise_dim,
+                                generator=generator or self.generator)
+            n, o = batch.objs.shape
+            attributes = self._tensor(batch.attributes, torch.float32)
+            if not use_gt_attributes:
+                attributes = torch.zeros_like(attributes)
+            if features is None:
+                feats = fmask = None
+            else:
+                feats = self._tensor(features, torch.float32)
+                fmask = (torch.ones((n, o), device=self.device)
+                         if features_mask is None
+                         else self._tensor(features_mask, torch.float32))
+            objs = self._tensor(batch.objs)
+            triples = self._tensor(batch.triples)
+            obj_mask = self._tensor(batch.obj_mask, torch.float32)
+            triple_mask = self._tensor(batch.triple_mask, torch.float32)
+            noise = noise.to(self.device)
+            imgs = self._tensor(batch.imgs)
+            boxes_gt = self._tensor(batch.boxes, torch.float32)
+            masks_gt = (self._tensor(batch.masks, torch.float32)
+                        if use_gt_masks else None)
+        with span("infer/model"):
+            return self.model(
+                objs, triples, attributes, obj_mask, triple_mask, noise,
+                imgs=imgs, boxes_gt=boxes_gt, masks_gt=masks_gt,
+                use_gt_box=use_gt_boxes, features=feats, features_mask=fmask)
 
     def sample_cluster_features(self, objs: np.ndarray, obj_mask: np.ndarray,
                                 rng: np.random.RandomState

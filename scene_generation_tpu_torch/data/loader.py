@@ -37,8 +37,10 @@ import numpy as np
 import torch
 
 from scene_generation_tpu_torch.data.batching import Batch, collate
+from scene_generation_tpu_torch.profiling import span
 
 _worker_dataset = None
+_END = object()          # device_prefetch: the host iterator is spent
 
 
 def _init_worker(dataset):
@@ -194,16 +196,29 @@ def device_prefetch(iterator, device, depth: int = 2):
     batches in flight on the card. Each batch is copied from pinned host
     memory with ``non_blocking=True`` on a side CUDA stream, and the
     consumer's stream waits on that copy's event before it uses the
-    batch. On the CPU it yields the host batches as they are."""
+    batch. On the CPU it yields the host batches as they are. The wait
+    for each host batch runs in the profiler range
+    ``loader/next``, each copy's enqueue in ``loader/to_device``; neither
+    holds a ``yield``."""
     device = torch.device(device)
+    iterator = iter(iterator)
+
+    def host_batches():
+        while True:
+            with span("loader/next"):
+                batch = next(iterator, _END)
+            if batch is _END:
+                return
+            yield batch
+
     if device.type != "cuda":
-        yield from iterator
+        yield from host_batches()
         return
     side = torch.cuda.Stream(device)
     buf = collections.deque()
 
     def put(batch):
-        with torch.cuda.stream(side):
+        with span("loader/to_device"), torch.cuda.stream(side):
             out = Batch(*(torch.from_numpy(np.ascontiguousarray(a))
                           .pin_memory().to(device, non_blocking=True)
                           for a in batch))
@@ -219,7 +234,7 @@ def device_prefetch(iterator, device, depth: int = 2):
             t.record_stream(cur)
         return batch
 
-    for batch in iterator:
+    for batch in host_batches():
         buf.append(put(batch))
         if len(buf) > depth:
             yield ready(*buf.popleft())

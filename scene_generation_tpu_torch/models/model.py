@@ -5,7 +5,11 @@ embeddings -> scene-graph conv stack -> box MLP / mask net / appearance
 vectors (encoded ground-truth crops, or repr MLP with the feature override)
 -> layout -> pix2pixHD generator. ``model.train()`` is the training forward
 (summed layouts of the ground truth, crops of the ground-truth image),
-``model.eval()`` the test-mode forward (occlusion layout) that serving runs.
+``model.eval()`` the test-mode forward (occlusion layout) that serving
+runs. Each stage runs in a profiler range of its own
+(``profiling.span``): ``model/graph``, ``model/appearance``,
+``model/heads``, ``model/layout`` (each layout of the train mode apart)
+and ``model/generator``.
 
 Padded-batch contract:
   objs         (N, O)    int class ids (0 also pads; see obj_mask)
@@ -41,6 +45,7 @@ from scene_generation_tpu_torch.ops.layout import (composite_layout,
                                                    masks_to_layout,
                                                    masks_to_layout_weights)
 from scene_generation_tpu_torch.ops.sampling import exact_f32_matmul
+from scene_generation_tpu_torch.profiling import span
 
 
 class ModelOutput(NamedTuple):
@@ -138,56 +143,66 @@ class SceneModel(nn.Module):
         n, o = objs.shape
         h, w = cfg.image_size
 
-        obj_vecs = self.scene_graph_to_vectors(objs, triples, attributes,
-                                               triple_mask, obj_mask)
+        with span("model/graph"):
+            obj_vecs = self.scene_graph_to_vectors(objs, triples, attributes,
+                                                   triple_mask, obj_mask)
         noise = mask_noise.to(dtype).expand(n, o, cfg.mask_noise_dim)
         mask_vecs = torch.cat([obj_vecs, noise], dim=-1)
         flat_w = obj_mask.reshape(n * o)
 
-        if features is None:
-            # Encode the ground-truth crops (the crop kernels on the card).
-            s = cfg.object_size
-            crops = crop_bbox_batch(wire_to_float(imgs).to(dtype), boxes_gt, s)
-            obj_repr = self.encode_crops(crops.reshape(n * o, s, s, 3),
+        with span("model/appearance"):
+            if features is None:
+                # Encode the ground-truth crops (the crop kernels on the
+                # card).
+                s = cfg.object_size
+                crops = crop_bbox_batch(wire_to_float(imgs).to(dtype),
+                                        boxes_gt, s)
+                obj_repr = self.encode_crops(
+                    crops.reshape(n * o, s, s, 3),
+                    flat_w).reshape(n, o, cfg.rep_size)
+            else:
+                obj_repr = self.repr_net(mask_vecs.reshape(n * o, -1),
                                          flat_w).reshape(n, o, cfg.rep_size)
-        else:
-            obj_repr = self.repr_net(mask_vecs.reshape(n * o, -1),
-                                     flat_w).reshape(n, o, cfg.rep_size)
-            if features_mask is None:
-                features_mask = torch.ones((n, o), dtype=dtype,
-                                           device=objs.device)
-            fm = features_mask[..., None].to(dtype)
-            obj_repr = fm * features.to(dtype) + (1 - fm) * obj_repr
+                if features_mask is None:
+                    features_mask = torch.ones((n, o), dtype=dtype,
+                                               device=objs.device)
+                fm = features_mask[..., None].to(dtype)
+                obj_repr = fm * features.to(dtype) + (1 - fm) * obj_repr
 
-        if cfg.layout_embed_dim:
-            cls_vecs = self.class_embed(objs.long())
-        else:
-            cls_vecs = F.one_hot(objs.long(), cfg.num_objs).to(dtype)
-        layout_vecs = torch.cat([cls_vecs, obj_repr], dim=-1)
+        with span("model/heads"):
+            if cfg.layout_embed_dim:
+                cls_vecs = self.class_embed(objs.long())
+            else:
+                cls_vecs = F.one_hot(objs.long(), cfg.num_objs).to(dtype)
+            layout_vecs = torch.cat([cls_vecs, obj_repr], dim=-1)
 
-        boxes_pred = self.box_net(obj_vecs.reshape(n * o, -1),
-                                  flat_w).reshape(n, o, 4).float()
-        mask_logits = self.mask_net(mask_vecs.reshape(n * o, cfg.g_mask_dim),
-                                    flat_w)
-        masks_pred = torch.sigmoid(mask_logits.float()).reshape(
-            n, o, cfg.mask_size, cfg.mask_size)
+            boxes_pred = self.box_net(obj_vecs.reshape(n * o, -1),
+                                      flat_w).reshape(n, o, 4).float()
+            mask_logits = self.mask_net(
+                mask_vecs.reshape(n * o, cfg.g_mask_dim), flat_w)
+            masks_pred = torch.sigmoid(mask_logits.float()).reshape(
+                n, o, cfg.mask_size, cfg.mask_size)
         if self.training:
             return self._train_layouts(
                 boxes_pred, masks_pred, obj_repr, cls_vecs, layout_vecs,
                 boxes_gt, masks_gt, obj_mask, wrong_rep)
 
-        boxes = (boxes_gt if use_gt_box else boxes_pred).to(dtype)
-        masks = (masks_gt if masks_gt is not None else masks_pred).to(dtype)
-        if cfg.factored_stem:
-            lw = masks_to_layout_weights(layout_vecs, boxes, masks, obj_mask,
-                                         h, w, test_mode=True)
-            layout_pred = (torch.einsum("nohw,nod->nhwd", lw, layout_vecs)
-                           if return_layout else None)
-            imgs_pred = self.layout_to_image(weights=lw, vecs=layout_vecs)
-        else:
-            layout_pred = composite_layout(layout_vecs, boxes, masks,
-                                           obj_mask, h, w)
-            imgs_pred = self.layout_to_image(layout_pred)
+        with span("model/layout"):
+            boxes = (boxes_gt if use_gt_box else boxes_pred).to(dtype)
+            masks = (masks_gt if masks_gt is not None
+                     else masks_pred).to(dtype)
+            if cfg.factored_stem:
+                lw = masks_to_layout_weights(layout_vecs, boxes, masks,
+                                             obj_mask, h, w, test_mode=True)
+                layout_pred = (torch.einsum("nohw,nod->nhwd", lw, layout_vecs)
+                               if return_layout else None)
+            else:
+                layout_pred = composite_layout(layout_vecs, boxes, masks,
+                                               obj_mask, h, w)
+        with span("model/generator"):
+            imgs_pred = (self.layout_to_image(weights=lw, vecs=layout_vecs)
+                         if cfg.factored_stem
+                         else self.layout_to_image(layout_pred))
         return ModelOutput(
             imgs_pred.float(), boxes_pred, masks_pred, None,
             None if layout_pred is None else layout_pred.float(), None,
@@ -203,23 +218,29 @@ class SceneModel(nn.Module):
         and the GT layout still materializes for D_img."""
         cfg = self.cfg
         h, w = cfg.image_size
-        if cfg.factored_stem:
-            lw_gt = masks_to_layout_weights(layout_vecs, boxes_gt, masks_gt,
-                                            obj_mask, h, w)
-            with exact_f32_matmul():
-                layout = torch.einsum("nohw,nod->nhwd", lw_gt, layout_vecs)
-            imgs_pred = self.layout_to_image(weights=lw_gt, vecs=layout_vecs)
-        else:
-            layout = masks_to_layout(layout_vecs, boxes_gt, masks_gt,
-                                     obj_mask, h, w)
-            imgs_pred = self.layout_to_image(layout)
-        layout_pred = masks_to_layout(layout_vecs, boxes_gt, masks_pred,
-                                      obj_mask, h, w)
+        with span("model/layout"):
+            if cfg.factored_stem:
+                lw_gt = masks_to_layout_weights(layout_vecs, boxes_gt,
+                                                masks_gt, obj_mask, h, w)
+                with exact_f32_matmul():
+                    layout = torch.einsum("nohw,nod->nhwd", lw_gt,
+                                          layout_vecs)
+            else:
+                layout = masks_to_layout(layout_vecs, boxes_gt, masks_gt,
+                                         obj_mask, h, w)
+        with span("model/generator"):
+            imgs_pred = (self.layout_to_image(weights=lw_gt, vecs=layout_vecs)
+                         if cfg.factored_stem
+                         else self.layout_to_image(layout))
+        with span("model/layout"):
+            layout_pred = masks_to_layout(layout_vecs, boxes_gt, masks_pred,
+                                          obj_mask, h, w)
         if wrong_rep is None:
             wrong_rep = obj_repr
         wrong_vecs = torch.cat([cls_vecs, wrong_rep.to(obj_repr.dtype)], -1)
-        layout_wrong = masks_to_layout(wrong_vecs, boxes_gt, masks_gt,
-                                       obj_mask, h, w)
+        with span("model/layout"):
+            layout_wrong = masks_to_layout(wrong_vecs, boxes_gt, masks_gt,
+                                           obj_mask, h, w)
         return ModelOutput(imgs_pred.float(), boxes_pred, masks_pred,
                            layout.float(), layout_pred.float(),
                            layout_wrong.float(), obj_repr.float(),
