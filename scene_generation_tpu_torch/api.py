@@ -3,6 +3,7 @@ or GUI-style JSON scene graphs (port of the JAX package's ``api.py``)."""
 from __future__ import annotations
 
 import os
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -12,6 +13,7 @@ from scene_generation_tpu_torch.config import Config
 from scene_generation_tpu_torch.convert import load_checkpoint
 from scene_generation_tpu_torch.data.batching import Batch, Example, collate
 from scene_generation_tpu_torch.models.model import ModelOutput, SceneModel
+from scene_generation_tpu_torch.models.replay import ModelReplay
 from scene_generation_tpu_torch.profiling import span
 
 
@@ -28,6 +30,8 @@ class InferenceModel:
         self.features = features        # class -> (k, rep) cluster centers
         self.features_one = features_one
         self.generator = torch.Generator().manual_seed(seed)
+        self.replay = ModelReplay(self.model)
+        self._lock = threading.Lock()
 
     @classmethod
     def from_checkpoint(cls, output_dir: str,
@@ -50,9 +54,6 @@ class InferenceModel:
                 features_one = np.load(one_path, allow_pickle=True).item()
         return cls(cfg, vocab, model, features, features_one)
 
-    def _tensor(self, a, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
-
     @torch.no_grad()
     def forward_batch(self, batch: Batch, use_gt_boxes: bool = False,
                       use_gt_masks: bool = False,
@@ -67,38 +68,45 @@ class InferenceModel:
         all-zero ``features_mask`` gives every object its repr_net
         appearance; ``features=None`` gives every object the appearance
         encoded from its crop of ``batch.imgs`` at its GT box (the crop
-        kernel on the card). The noise draw and the host-to-device copies
-        run in the profiler range ``infer/inputs``, the model call in
-        ``infer/model`` (``profiling.span``)."""
+        kernel on the card). On the card the model call is replayed as a
+        CUDA graph from its input signature's second call on
+        (``models/replay.py``). The noise draw and the host-to-device
+        copies of what the model reads run in the profiler range
+        ``infer/inputs``, the model call in ``infer/model``
+        (``profiling.span``). One call at a time runs."""
         mc = self.cfg.model
-        with span("infer/inputs"):
-            noise = torch.randn(mc.mask_noise_dim,
-                                generator=generator or self.generator)
-            n, o = batch.objs.shape
-            attributes = self._tensor(batch.attributes, torch.float32)
-            if not use_gt_attributes:
-                attributes = torch.zeros_like(attributes)
-            if features is None:
-                feats = fmask = None
-            else:
-                feats = self._tensor(features, torch.float32)
-                fmask = (torch.ones((n, o), device=self.device)
-                         if features_mask is None
-                         else self._tensor(features_mask, torch.float32))
-            objs = self._tensor(batch.objs)
-            triples = self._tensor(batch.triples)
-            obj_mask = self._tensor(batch.obj_mask, torch.float32)
-            triple_mask = self._tensor(batch.triple_mask, torch.float32)
-            noise = noise.to(self.device)
-            imgs = self._tensor(batch.imgs)
-            boxes_gt = self._tensor(batch.boxes, torch.float32)
-            masks_gt = (self._tensor(batch.masks, torch.float32)
-                        if use_gt_masks else None)
-        with span("infer/model"):
-            return self.model(
-                objs, triples, attributes, obj_mask, triple_mask, noise,
-                imgs=imgs, boxes_gt=boxes_gt, masks_gt=masks_gt,
-                use_gt_box=use_gt_boxes, features=feats, features_mask=fmask)
+        f32 = torch.float32
+        with self._lock:
+            with span("infer/inputs"):
+                n, o = batch.objs.shape
+                noise = torch.randn(mc.mask_noise_dim,
+                                    generator=generator or self.generator)
+                attributes = (batch.attributes if use_gt_attributes
+                              else np.zeros_like(batch.attributes))
+                host = dict(objs=_host(batch.objs),
+                            triples=_host(batch.triples),
+                            attributes=_host(attributes, f32),
+                            obj_mask=_host(batch.obj_mask, f32),
+                            triple_mask=_host(batch.triple_mask, f32),
+                            mask_noise=noise)
+                if features is not None:
+                    host["features"] = _host(features, f32)
+                    host["features_mask"] = (
+                        torch.ones((n, o)) if features_mask is None
+                        else _host(features_mask, f32))
+                # The test-mode model reads the images only to encode the
+                # objects' crops, and the GT boxes only for those crops or
+                # to composite with; the train mode reads both.
+                crops = features is None or self.model.training
+                if crops:
+                    host["imgs"] = _host(batch.imgs)
+                if crops or use_gt_boxes:
+                    host["boxes_gt"] = _host(batch.boxes, f32)
+                if use_gt_masks:
+                    host["masks_gt"] = _host(batch.masks, f32)
+                call = self.replay.stage(host, use_gt_boxes)
+            with span("infer/model"):
+                return self.replay.run(call)
 
     def sample_cluster_features(self, objs: np.ndarray, obj_mask: np.ndarray,
                                 rng: np.random.RandomState
@@ -211,3 +219,8 @@ class InferenceModel:
                                  features=features,
                                  features_mask=features_mask)
         return out, batch
+
+
+def _host(a, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """An array as a tensor on the host (sharing its memory where it can)."""
+    return torch.as_tensor(np.asarray(a), dtype=dtype)

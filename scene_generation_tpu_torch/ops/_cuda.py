@@ -7,8 +7,12 @@ headers, so a build takes seconds. A library's file name carries a hash of
 its source and flags, so an edited source is rebuilt and an unchanged one
 is loaded as it is. Nothing here runs when the module is imported.
 
-``LAUNCHES`` counts, per kernel, the launches the wrappers made in this
-process; a run resets it to show which kernels its path went through.
+``LAUNCHES`` counts, per kernel, the times the wrappers' kernels ran on the
+card in this process (a CUDA graph's capture counts none of its launches,
+each replay counts them all: ``models/replay.py``); a run resets it to show
+which kernels its path went through. ``MODEL_CALLS`` counts the model calls
+of ``InferenceModel.forward_batch`` by the path they took
+(``models/replay.py``: ``eager``, ``capture``, ``replay``).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = collections.Counter()
+MODEL_CALLS: Dict[str, int] = collections.Counter()
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
