@@ -5,13 +5,16 @@
 
 Builds the port's CUDA kernels from ``scene_generation_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the shapes of its path
-(the stem and the compositor at the serving shapes, the crop forward and
+(the stem and the compositor at the serving shapes, the bf16 stem also at
+the 256 px model's, in pixel bands, the crop forward and
 backward at the train shapes and the crop forward at the accuracy net's
 224 px, timed by CUDA events around a call and by the profiler's device
 time), checks that the forward-only kernels refuse
 inputs that require grad, serves HTTP requests and a batch-16 forward
 through the default ``Config()`` (the factored stem, bf16: the
-tensor-core stem kernel), runs the dense-stem variant (the compositor
+tensor-core stem kernel) and a batch-16 forward of the 256 px model
+(eager, captured and replayed: the banded stem kernel), runs the
+dense-stem variant (the compositor
 kernel) and the GT-appearance forward (``forward_batch(features=None)``:
 the crop forward kernel) and compares the card with the CPU in f32.
 Then it trains: a few steps of the default ``Config()``
@@ -215,11 +218,12 @@ def sm_clock() -> str:
 
 # --- phase 3: kernels against their plain versions --------------------------
 
-def stem_inputs(cfg: Config, dtype, seed=1, n=BATCH):
+def stem_inputs(cfg: Config, dtype, seed=1, n=BATCH, size=None):
     """The stem's main-path shapes: the padded weight field (values in
-    [0, 1], as claimed mask weights are) and the per-image taps."""
+    [0, 1], as claimed mask weights are) and the per-image taps; images of
+    ``size`` pixels a side, else ``cfg``'s."""
     mc = cfg.model
-    h = mc.image_size[0]
+    h = size or mc.image_size[0]
     o = cfg.data.max_objs
     gen = torch.Generator().manual_seed(seed)
     w = torch.rand((n, h + 6, h + 6, o), generator=gen)
@@ -227,13 +231,20 @@ def stem_inputs(cfg: Config, dtype, seed=1, n=BATCH):
     return w.to("cuda", dtype), g.to("cuda", dtype)
 
 
-# The stem's rows: f32 and bf16 at the serving batch, keyed by dtype, and
-# f32 at a val sweep's batch (the train CLI's), keyed (dtype, batch).
-STEM_CASES = ((torch.float32, BATCH), (torch.float32, TRAIN_BATCH),
-              (torch.bfloat16, BATCH))
+# The stem's rows (dtype, batch, image size or None for cfg's): f32 and
+# bf16 at the serving batch, keyed by dtype; f32 at a val sweep's batch
+# (the train CLI's), keyed (dtype, batch); bf16 at the serving batch of the
+# paper's 256 px model (stem_tc_banded_kernel), keyed (dtype, batch, size).
+BANDED_SIZE = 256
+STEM_CASES = ((torch.float32, BATCH, None),
+              (torch.float32, TRAIN_BATCH, None),
+              (torch.bfloat16, BATCH, None),
+              (torch.bfloat16, BATCH, BANDED_SIZE))
 
 
-def stem_key(dtype, n: int):
+def stem_key(dtype, n: int, size=None):
+    if size:
+        return dtype, n, size
     return dtype if n == BATCH else (dtype, n)
 
 
@@ -251,21 +262,31 @@ def check_stem(cfg: Config) -> dict:
     """The stem kernel against its plain version at the serving shape, f32
     (the 3xTF32 kernel) and bf16 (the bf16 kernel), and in f32 at a val
     sweep's batch, each twice, bitwise equal, timed by CUDA events beside
-    the plain version and the grouped-conv yardstick. The f32 rows' bound
+    the plain version and the grouped-conv yardstick, and in bf16 at the
+    256 px serving shape, where the stem runs in bands of 128 pixels
+    (``stem_tc_banded_kernel``); each call counted once in its kernel's
+    ``_cuda.LAUNCHES`` and never in the other. The f32 rows' bound
     is their three TF32 products at the TF32 tensor-core rate;
     ``cuda_core_bound_ms`` keeps the bound of one f32 product on the CUDA
     cores (the kernel PR 10 replaced). Each row carries its kernel's
     launch (``launch``: registers a thread, dynamic shared memory, blocks
     an SM, grid, ...). Device times come last (``stem_device_times``)."""
     rows = {}
-    for dtype, batch in STEM_CASES:
-        w, g = stem_inputs(cfg, dtype, n=batch)
+    for dtype, batch, size in STEM_CASES:
+        w, g = stem_inputs(cfg, dtype, n=batch, size=size)
+        before = dict(_cuda.LAUNCHES)
         got = stem(w, g)
         again = stem(w, g)
+        counted = {k: v - before.get(k, 0) for k, v in _cuda.LAUNCHES.items()
+                   if v != before.get(k, 0)}
         want = stem_plain(w, g)
         torch.cuda.synchronize()
         check(torch.equal(got, again),
               f"stem kernel {dtype} is not bitwise repeatable")
+        kernel = ("stem_f32" if dtype == torch.float32 else
+                  "stem_tc_banded" if size else "stem_tc")
+        check(counted == {"stem": 2, kernel: 2},
+              f"two {kernel} launches counted as {counted}")
         err = float((got.float() - want.float()).abs().max())
         # f32: 441-term sums in another order; bf16: both sum exact bf16
         # products in f32 and round to bf16 once, one ulp apart at most.
@@ -288,10 +309,15 @@ def check_stem(cfg: Config) -> dict:
         else:
             b_ms, b_by = bound(flops, moved, dtype)
             extra["launch"] = tc_launch_config(n, hp - 6, wp - 6, o, c)
+            bands = 128 if size else 0
+            check(extra["launch"]["band_pixels"] == bands,
+                  f"bf16 stem at {wp - 6} px: {extra['launch']}, "
+                  f"band_pixels not {bands}")
         check(extra["launch"]["local_bytes"] == 0,
               f"stem kernel {dtype} spills: {extra['launch']}")
-        key = stem_key(dtype, batch)
-        rows[key] = dict(batch=batch, max_abs_err=err, tol=tol, **extra,
+        key = stem_key(dtype, batch, size)
+        rows[key] = dict(batch=batch, size=hp - 6, max_abs_err=err, tol=tol,
+                         **extra,
                          ms=cuda_ms(lambda: stem(w, g)),
                          plain_ms=cuda_ms(lambda: stem_plain(w, g)),
                          library_ms=cuda_ms(library),
@@ -684,16 +710,16 @@ def stem_device_times(cfg: Config, rows: dict) -> None:
     """Each stem row's device time per call and its grouped-conv
     yardstick's (the profiler's own kernel times), added to ``rows``; run
     at the start of a process (``fresh_device_times``)."""
-    for dtype, batch in STEM_CASES:
-        w, g = stem_inputs(cfg, dtype, n=batch)
+    for dtype, batch, size in STEM_CASES:
+        w, g = stem_inputs(cfg, dtype, n=batch, size=size)
         dev = device_kernels_ms(lambda: stem(w, g))
         lib = device_kernels_ms(stem_library_call(w, g))
-        row = rows[stem_key(dtype, batch)]
+        row = rows[stem_key(dtype, batch, size)]
         row.update(device_ms=device_total_ms(dev), device_kernels=dev,
                    library_device_ms=device_total_ms(lib),
                    library_device_kernels=lib)
         say("kernel stem device", dtype=str(dtype), batch=batch,
-            device_ms=row["device_ms"],
+            **({"size": size} if size else {}), device_ms=row["device_ms"],
             device_kernels=dev, library_device_ms=row["library_device_ms"],
             library_device_kernels=lib, bound_ms=row["bound_ms"],
             clocks_sm=sm_clock(), **({"launch": row["launch"]}
@@ -816,7 +842,8 @@ def fresh_device_times(stem_rows: dict, comp_rows: dict,
             kernel, rec = tag.split()[1], json.loads(payload)
             dtype = getattr(torch, rec["dtype"].split(".")[1])
             if kernel == "stem":
-                row = stem_rows[stem_key(dtype, rec["batch"])]
+                row = stem_rows[stem_key(dtype, rec["batch"],
+                                         rec.get("size"))]
             elif kernel == "compositor":
                 row = comp_rows[dtype]
             elif kernel.endswith("_per_rank"):   # measured in the child
@@ -998,6 +1025,54 @@ def serve_and_forward(ckpt: str) -> dict:
           f"factored path launched the compositor: {launches}")
     say("serving", requests=len(graphs), batch=BATCH, launches=launches,
         img_std=float(out.imgs_pred.std()))
+    return launches
+
+
+def forward_256() -> dict:
+    """Phase 4b: the paper's 256 px model (``Config()`` at
+    ``image_size (256, 256)``, seed weights, the mask head spread) served
+    in bf16 through ``forward_batch`` at b16 three times, on the same
+    batch and noise: eagerly, captured as a CUDA graph and replayed
+    (``models/replay.py``), the three bitwise equal; each stem runs in
+    pixel bands (``stem_tc_banded_kernel``, never ``stem_tc_kernel``).
+    Prints the memory allocated and reserved after the replay."""
+    cfg = Config()
+    size = (BANDED_SIZE, BANDED_SIZE)
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, image_size=size),
+                      model=dataclasses.replace(cfg.model, image_size=size,
+                                                compute_dtype="bfloat16"))
+    model = build_model(cfg, "cuda", SEED)
+    spread_mask_head(model)
+    model = model.to(torch.bfloat16).requires_grad_(False)
+    im = InferenceModel(cfg, {}, model)
+    batch = synthetic_batch(cfg, seed=4, batch_size=BATCH)
+    n, o = batch.objs.shape
+    _cuda.LAUNCHES.clear()
+    _cuda.MODEL_CALLS.clear()
+    torch.cuda.reset_peak_memory_stats()
+    outs = [im.forward_batch(
+        batch, features=np.zeros((n, o, cfg.model.rep_size), np.float32),
+        features_mask=np.zeros((n, o), np.float32),
+        generator=torch.Generator().manual_seed(5)) for _ in range(3)]
+    torch.cuda.synchronize()
+    launches, calls = dict(_cuda.LAUNCHES), dict(_cuda.MODEL_CALLS)
+    check(calls == {"eager": 1, "capture": 1, "replay": 1},
+          f"256 px model calls {calls}")
+    check(launches.get("stem_tc_banded") == 3 == launches.get("stem")
+          and "stem_tc" not in launches, f"256 px launches {launches}")
+    for out in outs[1:]:
+        check(torch.equal(out.imgs_pred, outs[0].imgs_pred)
+              and torch.equal(out.masks_pred, outs[0].masks_pred),
+              "256 px: a captured or replayed call differs from the eager "
+              "one")
+    check(tuple(outs[0].imgs_pred.shape) == (BATCH, *size, 3),
+          f"imgs_pred {tuple(outs[0].imgs_pred.shape)}")
+    check_images(outs[0].imgs_pred, "serving b16 at 256 px")
+    say("serving 256", batch=BATCH, launches=launches, model_calls=calls,
+        img_std=float(outs[0].imgs_pred.std()),
+        memory_allocated_bytes=torch.cuda.memory_allocated(),
+        memory_peak_bytes=torch.cuda.max_memory_allocated(),
+        memory_reserved_bytes=torch.cuda.memory_reserved())
     return launches
 
 
@@ -2450,6 +2525,7 @@ def main(argv=None) -> int:
         gt_appearance(ckpts["factored"])
         card_vs_cpu(model_cpu)
     del model_cpu
+    launches_256 = forward_256()
     with torch_default_tf32():
         train = train_on_card()
     train_card_vs_cpu()
@@ -2519,6 +2595,15 @@ def main(argv=None) -> int:
                  if k in ("batch", "max_abs_err", "ms", "plain_ms",
                           "library_ms", "bound_ms", "bound_by", "device_ms",
                           "library_device_ms", "launch")}),
+        # The bf16 stem in bands of 128 pixels (stem_tc_banded_kernel):
+        # launches serving the 256 px model (forward_256), its row at that
+        # shape.
+        dict(row("stem_banded", "scene_generation_tpu_torch/csrc/stem.cu",
+                 "scene_generation_tpu/ops/pallas/stem.py:47",
+                 launches_256["stem_tc_banded"],
+                 stem_rows[(torch.bfloat16, BATCH, BANDED_SIZE)]),
+             launch=stem_rows[(torch.bfloat16, BATCH, BANDED_SIZE)][
+                 "launch"]),
         row("compositor", "scene_generation_tpu_torch/csrc/compositor.cu",
             "scene_generation_tpu/ops/pallas/compositor.py:48",
             dense_launches["compositor"], comp_rows[torch.bfloat16]),

@@ -60,6 +60,23 @@
 //     block an SM (shared memory allows one), so that both the serving
 //     shape (16 images: 128 units of 32 rows) and a val sweep's (12: 120
 //     of 26) take one wave.
+// bfloat16 wider than a ring of 7 full-width packed rows allows (W above
+// 152 at O = 9 and C = 64, or O from 10 at W = 128): stem_tc_banded_kernel.
+//   * It runs the body of stem_tc_kernel (one device function, whose
+//     whole rows are one band of W pixels), on bands of
+//     PX output pixels: 128 where the tiles fit, else 64, else 32 (a
+//     pixel's k and g[n] fill the block: O up to 16 at C = 64). A unit is
+//     one band of RB rows of one image and channel tile; its input rows
+//     are staged PX + 6 pixels wide (the halo of the 7 taps) and packed
+//     into rows of PX pixels, so the ring no longer grows with W. At the
+//     256 px serving shape (b16, O = 9, C = 64) that is bands of 128
+//     pixels and 64 rows, 128 units in one wave, the 128 px launch's ring.
+//   * A pass over a band's last, narrower pixels takes m64n64 where at
+//     most 64 are left; one of a 32-pixel band reads 32 pixels past it
+//     (the plan keeps them inside the allocation), whose columns are
+//     not stored.
+//   * Each output element is summed in the same order as in
+//     stem_tc_kernel, so the two agree bit for bit where both run.
 // No atomics and a fixed order of the three products, of k and of dx: a
 // call is bitwise repeatable. Ragged edges: pixels past W+6 and k past 7*O
 // are zero in E, channels past C are zero in T and not stored, nor pixels
@@ -136,7 +153,12 @@ struct DeviceInfo {
 };
 
 constexpr int MAX_DEVICES = 64;
-enum KernelIndex { KERNEL_TC, KERNEL_F32_64, KERNEL_F32_32, KERNELS };
+enum KernelIndex {
+  KERNEL_TC, KERNEL_TC_BANDED, KERNEL_F32_64, KERNEL_F32_32, KERNELS
+};
+
+// What sg_stem reports it launched (ops/stem.py reads the same numbers).
+enum KernelLaunched { STEM_F32 = 0, STEM_TC = 1, STEM_TC_BANDED = 2 };
 
 std::mutex host_mutex;                  // ctypes calls come without the GIL
 DeviceInfo devices[MAX_DEVICES];
@@ -189,8 +211,9 @@ constexpr int TC_PACKERS = 4;          // producer warps: a row each at a time,
 constexpr int TC_OUT_PX = 64;          // pixels of a consumer's output tile
 constexpr int TC_RING_MAX = 9;         // packed rows resident, at most
 
-// The launch's plan: its bands and where its tiles lie in dynamic shared
-// memory (byte offsets from its first 1024-byte boundary): the taps
+// The launch's plan: its bands (of rows, and of PX pixels in the banded
+// kernel) and where its tiles lie in dynamic shared memory (byte offsets
+// from its first 1024-byte boundary): the taps
 // [dy][KO k-rows][64 channels] (MN-major) at 0, the ring of packed rows
 // [ring][k-blocks][WP pixels][64 k] (K-major) at ring_at, g[n] staged at a
 // band's start at g_at (the end of the ring's space), the raw rows'
@@ -200,11 +223,14 @@ constexpr int TC_RING_MAX = 9;         // packed rows resident, at most
 struct TcPlan {
   int KO;           // k of a product: 7*O rounded up to 16
   int CT;           // channel tiles of 64
+  int PX;           // output pixels of a band: W for whole rows
+  int XT;           // pixel bands of a row: 1 for whole rows
+  bool banded;      // bands of pixels: stem_tc_banded_kernel
   int RB;           // output rows of a band
-  int bands;        // bands of an image
-  int units;        // bands of the launch: N * CT * bands
+  int bands;        // bands of rows of an image's column
+  int units;        // bands of the launch: N * CT * XT * bands
   int ring;         // packed rows resident: 7 to 9
-  uint32_t block;   // bytes of a k-block of a packed row: WP * 128
+  uint32_t block;   // bytes of a k-block of a packed row: its pixels * 128
   uint32_t slot;    // bytes of a packed row: its k-blocks
   uint32_t stage;   // bytes of a staging slot
   uint32_t ring_at, g_at, stage_at, out_at, bars_at, total;
@@ -213,26 +239,12 @@ struct TcPlan {
 
 inline size_t round_up_size(size_t v, size_t m) { return (v + m - 1) / m * m; }
 
-// Fills P for the shape on a card of sms SMs and max_smem bytes of shared
-// memory a block; false if even a ring of 7 packed rows does not fit.
-inline bool tc_plan(int N, int H, int W, int O, int C, int sms, int max_smem,
-                    TcPlan& P) {
-  P.KO = round_up(K * O, 16);
-  P.CT = (C + TC_NC - 1) / TC_NC;
-  const int per_image = std::min(H, std::max(1, sms / (N * P.CT)));
-  P.RB = (H + per_image - 1) / per_image;
-  P.bands = (H + P.RB - 1) / P.RB;
-  P.units = N * P.CT * P.bands;
-  P.block = (uint32_t)round_up(W, 8) * 128;
-  P.slot = (P.KO + 63) / 64 * P.block;   // k-blocks of 64 k
-  // A span starts up to 14 bytes before its row; the packing reads up to
-  // 33 bytes past a row's last byte (masked).
-  P.stage = (uint32_t)round_up_size((size_t)(W + K - 1) * O * 2 + 48, 16);
+// Places the ring (9 packed rows, down to 7) and the tiles after it in
+// max_smem bytes, with P's rows and staging slots set; false if even 7 do
+// not fit. overrun: bytes a pass may read past the last slot.
+inline bool tc_fit(int O, int C, size_t overrun, int max_smem, TcPlan& P) {
   const size_t taps = (size_t)K * P.KO * 128;
   const size_t g_bytes = (size_t)K * K * O * C * 2 + 64;
-  // The last pass of a row reads up to round_up(W, 64) pixels: past the
-  // last slot, that many more bytes must lie inside the allocation.
-  const size_t overrun = (size_t)(round_up(W, 64) - round_up(W, 8)) * 128;
   for (int ring = TC_RING_MAX; ring >= K; --ring) {
     const size_t ring_bytes =
         round_up_size(std::max((size_t)ring * P.slot, g_bytes), 1024);
@@ -253,6 +265,60 @@ inline bool tc_plan(int N, int H, int W, int O, int C, int sms, int max_smem,
       return true;
     }
   }
+  return false;
+}
+
+// Fills P for the shape on a card of sms SMs and max_smem bytes of shared
+// memory a block, rows whole (stem_tc_kernel); false if even a ring of 7
+// packed rows does not fit.
+inline bool tc_plan(int N, int H, int W, int O, int C, int sms, int max_smem,
+                    TcPlan& P) {
+  P.KO = round_up(K * O, 16);
+  P.CT = (C + TC_NC - 1) / TC_NC;
+  P.PX = W;
+  P.XT = 1;
+  P.banded = false;
+  const int per_image = std::min(H, std::max(1, sms / (N * P.CT)));
+  P.RB = (H + per_image - 1) / per_image;
+  P.bands = (H + P.RB - 1) / P.RB;
+  P.units = N * P.CT * P.bands;
+  P.block = (uint32_t)round_up(W, 8) * 128;
+  P.slot = (P.KO + 63) / 64 * P.block;   // k-blocks of 64 k
+  // A span starts up to 14 bytes before its row; the packing reads up to
+  // 33 bytes past a row's last byte (masked).
+  P.stage = (uint32_t)round_up_size((size_t)(W + K - 1) * O * 2 + 48, 16);
+  // The last pass of a row reads up to round_up(W, 64) pixels: past the
+  // last slot, that many more bytes must lie inside the allocation.
+  return tc_fit(O, C, (size_t)(round_up(W, 64) - round_up(W, 8)) * 128,
+                max_smem, P);
+}
+
+// The same in bands of PX pixels (stem_tc_banded_kernel): rows of PX + 6
+// input pixels staged, PX packed; balanced over the SMs as the f32 plan is.
+inline bool tc_banded_plan_at(int N, int H, int W, int O, int C, int sms,
+                              int max_smem, int PX, TcPlan& P) {
+  P.KO = round_up(K * O, 16);
+  P.CT = (C + TC_NC - 1) / TC_NC;
+  P.PX = PX;
+  P.XT = (W + PX - 1) / PX;
+  P.banded = true;
+  const int columns = N * P.CT * P.XT;
+  const int per_column = std::min(H, std::max(1, sms / columns));
+  P.RB = (H + per_column - 1) / per_column;
+  P.bands = (H + P.RB - 1) / P.RB;
+  P.units = columns * P.bands;
+  P.block = (uint32_t)PX * 128;
+  P.slot = (P.KO + 63) / 64 * P.block;
+  P.stage = (uint32_t)round_up_size((size_t)(PX + K - 1) * O * 2 + 48, 16);
+  return tc_fit(O, C, (size_t)(round_up(PX, 64) - PX) * 128, max_smem, P);
+}
+
+// Bands of 128 pixels where their tiles fit (the passes stay m64n128),
+// else of 64, else of 32; false if none fits.
+inline bool tc_banded_plan(int N, int H, int W, int O, int C, int sms,
+                           int max_smem, TcPlan& P) {
+  for (int PX = 128; PX >= 32; PX /= 2)
+    if (tc_banded_plan_at(N, H, W, O, C, sms, max_smem, PX, P)) return true;
   return false;
 }
 
@@ -580,10 +646,13 @@ __device__ __forceinline__ void tc_pass(float (&acc)[NR],
   pin(acc);
 }
 
-__global__ void __launch_bounds__(TC_THREADS, 1)
-stem_tc_kernel(const uint16_t* __restrict__ w, const uint16_t* __restrict__ g,
-               __nv_bfloat16* __restrict__ out, int H, int W, int O, int C,
-               TcPlan P) {
+// The bf16 kernels' body: bands of P.PX pixels, each unit's rows as wide
+// as its band; whole rows (stem_tc_kernel) are one band of W pixels.
+__device__ __forceinline__ void tc_body(const uint16_t* __restrict__ w,
+                                        const uint16_t* __restrict__ g,
+                                        __nv_bfloat16* __restrict__ out,
+                                        int H, int W, int O, int C,
+                                        const TcPlan& P) {
   extern __shared__ __align__(1024) uint8_t tc_smem_raw[];
   // The swizzled tiles start at 1024-byte boundaries of the shared window.
   uint8_t* tc_smem =
@@ -616,12 +685,21 @@ stem_tc_kernel(const uint16_t* __restrict__ w, const uint16_t* __restrict__ g,
   uint32_t q = 0;       // input rows of the block's earlier bands
   int it = 0;           // the block's earlier bands
   for (int u = blockIdx.x; u < P.units; u += gridDim.x, ++it) {
-    const int per_image = P.CT * P.bands;
-    const int n = u / per_image, r = u - n * per_image;
-    const int ct = r / P.bands, ya = (r - ct * P.bands) * P.RB;
+    const int per_image = P.CT * P.XT * P.bands;
+    const int n = u / per_image;
+    int r = u - n * per_image;
+    const int ct = r / (P.XT * P.bands);
+    r -= ct * P.XT * P.bands;
+    const int xt = r / P.bands;
+    const int ya = (r - xt * P.bands) * P.RB;
+    // The unit's output pixels x0..x0+px-1, and the span of an input row
+    // they read: px + 6 pixels from x0 (the whole row: x0 = 0, px = W).
+    const int x0 = xt * P.PX;
+    const int px = min(P.PX, W - x0);
+    const int span = (px + K - 1) * O;
     const int rows = min(P.RB, H - ya), rows_in = rows + K - 1;
     const uint16_t* gn = g + (size_t)n * K * KR * C;
-    const uint16_t* wn = w + ((size_t)n * Hp + ya) * row_len;
+    const uint16_t* wn = w + ((size_t)n * Hp + ya) * row_len + (size_t)x0 * O;
 
     // The band's g[n] and each producer warp's first raw row in flight.
     // Producer warp pw packs the rows s = q+i with s % TC_PACKERS == pw,
@@ -631,7 +709,7 @@ stem_tc_kernel(const uint16_t* __restrict__ w, const uint16_t* __restrict__ g,
     if (tid == 2 * TC_WG)
       load_span(base + P.g_at, gn, K * KR * C, g_landed);
     if (wg == 2 && lane == 0 && first < rows_in)
-      load_span(stage + pw * P.stage, wn + (size_t)first * row_len, row_len,
+      load_span(stage + pw * P.stage, wn + (size_t)first * row_len, span,
                 landed + 8 * pw);
     if (wg == 2) {
       // Producer warp pw: its rows i into ring slot (q+i) % ring once both
@@ -646,7 +724,7 @@ stem_tc_kernel(const uint16_t* __restrict__ w, const uint16_t* __restrict__ g,
         tc_pack_row(tc_smem + P.ring_at + rs * P.slot,
                     reinterpret_cast<const uint32_t*>(tc_smem + P.stage_at +
                                                       ss * P.stage),
-                    span_lead(wn + (size_t)i * row_len), W, O, KC, KR,
+                    span_lead(wn + (size_t)i * row_len), px, O, KC, KR,
                     P.block, lane);
         fence_async_shared();
         // Every lane has written its chunks and is done reading the
@@ -656,7 +734,7 @@ stem_tc_kernel(const uint16_t* __restrict__ w, const uint16_t* __restrict__ g,
           mbar_arrive(full + 8 * rs);
           if (i + TC_PACKERS < rows_in)
             load_span(stage + ss * P.stage,
-                      wn + (size_t)(i + TC_PACKERS) * row_len, row_len,
+                      wn + (size_t)(i + TC_PACKERS) * row_len, span,
                       landed + 8 * ss);
         }
       }
@@ -694,20 +772,21 @@ stem_tc_kernel(const uint16_t* __restrict__ w, const uint16_t* __restrict__ g,
 #pragma unroll
         for (int dy = 0; dy < K; ++dy)
           in_rows[dy] = ring + ((q + i + dy) % P.ring) * P.slot;
-        __nv_bfloat16* orow = out + ((size_t)n * H + ya + i) * W * C;
+        __nv_bfloat16* orow =
+            out + (((size_t)n * H + ya + i) * W + x0) * C;
         const int c0 = ct * TC_NC;
         uint8_t* tile = tc_smem + P.out_at + wg * TC_OUT_PX * 128;
         // Passes of 128 pixels (n128), the last one of 64 (n64) when no
         // more are left.
-        for (int x0 = 0; x0 < W; x0 += 128) {
-          if (W - x0 > 64) {
+        for (int xp = 0; xp < px; xp += 128) {
+          if (px - xp > 64) {
             float acc[64];
-            tc_pass(acc, in_rows, x0, taps, P.KO, P.block);
-            tc_store(acc, tile, orow, x0, W, C, c0, wq, lane, wt, 2 + wg);
+            tc_pass(acc, in_rows, xp, taps, P.KO, P.block);
+            tc_store(acc, tile, orow, xp, px, C, c0, wq, lane, wt, 2 + wg);
           } else {
             float acc[32];
-            tc_pass(acc, in_rows, x0, taps, P.KO, P.block);
-            tc_store(acc, tile, orow, x0, W, C, c0, wq, lane, wt, 2 + wg);
+            tc_pass(acc, in_rows, xp, taps, P.KO, P.block);
+            tc_store(acc, tile, orow, xp, px, C, c0, wq, lane, wt, 2 + wg);
           }
         }
         release(q + i + 2);
@@ -722,33 +801,70 @@ stem_tc_kernel(const uint16_t* __restrict__ w, const uint16_t* __restrict__ g,
   }
 }
 
+__global__ void __launch_bounds__(TC_THREADS, 1)
+stem_tc_kernel(const uint16_t* __restrict__ w, const uint16_t* __restrict__ g,
+               __nv_bfloat16* __restrict__ out, int H, int W, int O, int C,
+               TcPlan P) {
+  tc_body(w, g, out, H, W, O, C, P);
+}
+
+__global__ void __launch_bounds__(TC_THREADS, 1)
+stem_tc_banded_kernel(const uint16_t* __restrict__ w,
+                      const uint16_t* __restrict__ g,
+                      __nv_bfloat16* __restrict__ out, int H, int W, int O,
+                      int C, TcPlan P) {
+  tc_body(w, g, out, H, W, O, C, P);
+}
+
 struct TcLaunch {
   TcPlan plan;
   int grid;
 };
 
-// The plan and grid of a launch at this shape on the current card;
-// cudaErrorInvalidValue if its tiles do not fit a block's shared memory.
+// The plan and grid of a launch at this shape on the current card: whole
+// rows where a ring of them fits, else bands (L.plan.banded);
+// cudaErrorInvalidValue if neither fits a block's shared memory.
 cudaError_t tc_launch_plan(int N, int H, int W, int O, int C, TcLaunch& L) {
   int device = 0;
   DeviceInfo info;
   cudaError_t err = device_info(device, info);
   if (err != cudaSuccess) return err;
-  if (!tc_plan(N, H, W, O, C, info.sms, info.max_smem, L.plan))
+  if (tc_plan(N, H, W, O, C, info.sms, info.max_smem, L.plan)) {
+    L.grid = std::min(L.plan.units, info.sms);
+    return allow_smem((const void*)stem_tc_kernel, KERNEL_TC, device,
+                      L.plan.total);
+  }
+  if (!tc_banded_plan(N, H, W, O, C, info.sms, info.max_smem, L.plan))
     return cudaErrorInvalidValue;
   L.grid = std::min(L.plan.units, info.sms);
-  return allow_smem((const void*)stem_tc_kernel, KERNEL_TC, device,
-                    L.plan.total);
+  return allow_smem((const void*)stem_tc_banded_kernel, KERNEL_TC_BANDED,
+                    device, L.plan.total);
+}
+
+// The kernel of a plan: stem_tc_kernel, or stem_tc_banded_kernel.
+inline const void* tc_kernel(const TcPlan& P) {
+  return P.banded ? (const void*)stem_tc_banded_kernel
+              : (const void*)stem_tc_kernel;
 }
 
 cudaError_t launch_tc(const void* w, const void* g, void* out, int N, int H,
-                      int W, int O, int C, cudaStream_t stream) {
+                      int W, int O, int C, cudaStream_t stream,
+                      int* launched) {
   TcLaunch L;
   const cudaError_t err = tc_launch_plan(N, H, W, O, C, L);
   if (err != cudaSuccess) return err;
-  stem_tc_kernel<<<L.grid, TC_THREADS, L.plan.total, stream>>>(
-      static_cast<const uint16_t*>(w), static_cast<const uint16_t*>(g),
-      static_cast<__nv_bfloat16*>(out), H, W, O, C, L.plan);
+  const uint16_t* wb = static_cast<const uint16_t*>(w);
+  const uint16_t* gb = static_cast<const uint16_t*>(g);
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+  if (L.plan.banded) {
+    stem_tc_banded_kernel<<<L.grid, TC_THREADS, L.plan.total, stream>>>(
+        wb, gb, ob, H, W, O, C, L.plan);
+    *launched = STEM_TC_BANDED;
+  } else {
+    stem_tc_kernel<<<L.grid, TC_THREADS, L.plan.total, stream>>>(
+        wb, gb, ob, H, W, O, C, L.plan);
+    *launched = STEM_TC;
+  }
   return cudaGetLastError();
 }
 
@@ -1198,7 +1314,8 @@ cudaError_t f32_launch_plan(int N, int H, int W, int O, int C,
 }
 
 cudaError_t launch_f32(const void* w, const void* g, void* out, int N, int H,
-                       int W, int O, int C, cudaStream_t stream) {
+                       int W, int O, int C, cudaStream_t stream,
+                       int* launched) {
   F32Launch L;
   const cudaError_t err = f32_launch_plan(N, H, W, O, C, L);
   if (err != cudaSuccess) return err;
@@ -1211,6 +1328,7 @@ cudaError_t launch_f32(const void* w, const void* g, void* out, int N, int H,
   else
     stem_f32_kernel<32><<<L.grid, F32_THREADS, L.plan.total, stream>>>(
         wf, gf, of, H, W, O, C, L.plan);
+  *launched = STEM_F32;
   return cudaGetLastError();
 }
 
@@ -1218,30 +1336,32 @@ cudaError_t launch_f32(const void* w, const void* g, void* out, int N, int H,
 
 extern "C" {
 
-// dtype: 0 = float32 (stem_f32_kernel), 1 = bfloat16 (stem_tc_kernel).
-// Returns cudaGetLastError() of the launch.
+// dtype: 0 = float32 (stem_f32_kernel), 1 = bfloat16 (stem_tc_kernel, or
+// stem_tc_banded_kernel where whole rows do not fit). Sets *launched to
+// the kernel that ran (KernelLaunched) and returns cudaGetLastError() of
+// the launch.
 int sg_stem(const void* w, const void* g, void* out, int N, int H, int W,
-            int O, int C, int dtype, void* stream) {
+            int O, int C, int dtype, void* stream, int* launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(w, g, out, N, H, W, O, C, s);
-  if (dtype == 1) return launch_tc(w, g, out, N, H, W, O, C, s);
+  if (dtype == 0) return launch_f32(w, g, out, N, H, W, O, C, s, launched);
+  if (dtype == 1) return launch_tc(w, g, out, N, H, W, O, C, s, launched);
   return cudaErrorInvalidValue;
 }
 
-// The bf16 kernel's launch at this shape on the current card, launching
-// nothing: info[0..7] = registers a thread, dynamic shared memory (bytes),
-// blocks an SM, grid, packed rows resident, output rows a band, local
-// memory a thread (bytes), threads a block. Returns a CUDA error code.
+// The bf16 launch at this shape on the current card, launching nothing:
+// info[0..8] = registers a thread, dynamic shared memory (bytes), blocks
+// an SM, grid, packed rows resident, output rows a band, local memory a
+// thread (bytes), threads a block, pixels a band (0: whole rows,
+// stem_tc_kernel). Returns a CUDA error code.
 int sg_stem_tc_config(int N, int H, int W, int O, int C, int* info) {
   TcLaunch L;
   cudaError_t err = tc_launch_plan(N, H, W, O, C, L);
   cudaFuncAttributes a;
   int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&a, (const void*)stem_tc_kernel);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, tc_kernel(L.plan));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, stem_tc_kernel, TC_THREADS, L.plan.total);
+        &blocks, tc_kernel(L.plan), TC_THREADS, L.plan.total);
   if (err != cudaSuccess) return err;
   info[0] = a.numRegs;
   info[1] = (int)L.plan.total;
@@ -1251,6 +1371,7 @@ int sg_stem_tc_config(int N, int H, int W, int O, int C, int* info) {
   info[5] = L.plan.RB;
   info[6] = (int)a.localSizeBytes;
   info[7] = TC_THREADS;
+  info[8] = L.plan.banded ? L.plan.PX : 0;
   return 0;
 }
 

@@ -8,8 +8,10 @@ It replaces the TPU kernel ``stem_pallas`` of the JAX package
 runs ``stem_plain`` for a CPU tensor; it never falls back from one to the
 other. The dtype picks the kernel, both on Hopper's warpgroup products
 (``wgmma.mma_async``) fed through rings of packed rows on mbarriers:
-bfloat16 (serving; counted in ``LAUNCHES["stem_tc"]`` too) and float32 in
-3xTF32 (each operand split into a TF32 high and low part, three products
+bfloat16 (serving; counted in ``LAUNCHES["stem_tc"]`` too, or, where a ring
+of whole packed rows does not fit, as at 256 px, by the same products in
+bands of 128, 64 or 32 pixels in ``LAUNCHES["stem_tc_banded"]``) and float32
+in 3xTF32 (each operand split into a TF32 high and low part, three products
 summed in f32; counted in ``LAUNCHES["stem_f32"]`` too). ``LAUNCHES["stem"]``
 counts every launch; ``tc_launch_config`` and ``f32_launch_config``
 report each kernel's launch at a shape. The kernels are
@@ -27,16 +29,20 @@ import torch.nn.functional as F
 from scene_generation_tpu_torch.ops import _cuda
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The kernel ``sg_stem`` reports it launched (``csrc/stem.cu``,
+# ``KernelLaunched``), by its launch counter.
+_LAUNCHED = {0: "stem_f32", 1: "stem_tc", 2: "stem_tc_banded"}
 _CONFIG_KEYS = {
     "sg_stem_tc_config": ("registers", "dynamic_smem_bytes", "blocks_per_sm",
                           "grid", "ring_rows", "band_rows", "local_bytes",
-                          "threads"),
+                          "threads", "band_pixels"),
     "sg_stem_f32_config": ("registers", "dynamic_smem_bytes",
                            "blocks_per_sm", "grid", "band_pixels",
                            "band_rows", "local_bytes", "threads"),
 }
 _ARGTYPES = {
-    "sg_stem": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "sg_stem": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]),
     **{name: [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
        for name in _CONFIG_KEYS},
 }
@@ -97,16 +103,16 @@ def _launch(weights: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, h, w, c), dtype=weights.dtype,
                       device=weights.device)
     stream = torch.cuda.current_stream(weights.device).cuda_stream
+    launched = ctypes.c_int(-1)
     rc = fn(weights.data_ptr(), g.data_ptr(), out.data_ptr(), n, h, w, o, c,
-            _DTYPE_CODES[weights.dtype], stream)
-    # A shape whose tiles exceed a block's shared memory is refused by the
-    # launch and raised here.
+            _DTYPE_CODES[weights.dtype], stream, ctypes.byref(launched))
+    # A shape whose tiles exceed a block's shared memory (in bands too) is
+    # refused by the launch and raised here.
     if rc:
         _cuda.check(_cuda.library("stem"), rc,
                     f"stem kernel at W={w}, O={o}, C={c}")
     _cuda.LAUNCHES["stem"] += 1
-    _cuda.LAUNCHES["stem_tc" if weights.dtype == torch.bfloat16
-                   else "stem_f32"] += 1
+    _cuda.LAUNCHES[_LAUNCHED[launched.value]] += 1
     return out
 
 
@@ -121,11 +127,13 @@ def _launch_config(name: str, n: int, h: int, w: int, o: int,
 
 
 def tc_launch_config(n: int, h: int, w: int, o: int, c: int) -> dict:
-    """The bf16 kernel's launch at output (N, H, W) with O weight channels
-    and C channels on the current card, without launching it: registers a
+    """The bf16 launch at output (N, H, W) with O weight channels and C
+    channels on the current card, without launching it: registers a
     thread, dynamic shared memory, blocks an SM, grid, packed input rows
-    resident, output rows a band, local memory a thread and threads a
-    block. Raises where the kernel would refuse the shape."""
+    resident, output rows a band, local memory a thread, threads a block
+    and pixels a band (0: whole rows, ``stem_tc_kernel``; else
+    ``stem_tc_banded_kernel``). Raises where both would refuse the
+    shape."""
     return _launch_config("sg_stem_tc_config", n, h, w, o, c)
 
 

@@ -1,13 +1,14 @@
 """Times of the port's stem kernels at the main path's shapes, for comparing
 two trees of the repository in one call on the card.
 
-    python3 stem_times.py [--tree DIR]
+    python3 stem_times.py [--tree DIR] [--size PX]
 
 imports ``scene_generation_tpu_torch`` from DIR (default: this script's
 directory; a ``git archive`` of another commit unpacked under ``output/``
 for an A/B), builds its stem kernels and, for the f32 kernel at the serving
 batch (16) and a val sweep's (12) and the bf16 kernel at the serving
-batch, on ``chip_smoke.py``'s inputs (128x128, O = 9, C = 64), prints one
+batch, on ``chip_smoke.py``'s inputs (128x128, or ``--size`` square, O = 9,
+C = 64; at 256 the bf16 stem runs in pixel bands), prints one
 JSON line each: the profiler's device time a call, taken first in the
 process (later ones under-count: ``PERF.md`` §6), and the median of 20
 calls timed by CUDA events after 3 (host work a launch included). It
@@ -32,6 +33,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=os.path.dirname(
         os.path.abspath(__file__)))
+    parser.add_argument("--size", type=int, default=128)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("stem_times: no CUDA device", file=sys.stderr)
@@ -49,7 +51,7 @@ def main() -> int:
     inputs = {}
     for dtype, n in CASES:
         gen = torch.Generator().manual_seed(1)
-        w = torch.rand((n, 134, 134, 9), generator=gen)
+        w = torch.rand((n, args.size + 6, args.size + 6, 9), generator=gen)
         g = 0.1 * torch.randn((n, 7, 7, 9, 64), generator=gen)
         w, g = w.to("cuda", dtype), g.to("cuda", dtype)
         got = stem(w, g)
@@ -73,7 +75,7 @@ def main() -> int:
         kernels = [e for e in prof.key_averages()
                    if e.device_time_total > 0 and "stem" in e.key]
         rows[(dtype, n)] = dict(
-            dtype=str(dtype), batch=n, max_abs_err=err,
+            dtype=str(dtype), batch=n, size=args.size, max_abs_err=err,
             device_ms=(sum(e.device_time_total / e.count for e in kernels)
                        / 1e3 if kernels else "not measured"),
             device_launches=sum(e.count for e in kernels))

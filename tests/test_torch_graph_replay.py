@@ -2,7 +2,8 @@
 card a signature's first call runs eagerly, its second captures the model
 as a CUDA graph, later ones replay it, and every replayed output equals
 the eager model's on the same inputs, bit for bit, in bf16 and f32, with
-the appearance given and encoded from crops. Outputs of successive calls
+the appearance given and encoded from crops, and at 256 px in bf16 (the
+stem in pixel bands). Outputs of successive calls
 are fresh tensors; ``_cuda.LAUNCHES`` counts the stem once a call on
 every path; a new batch size captures anew; train mode and grad-enabled
 calls stay eager. On the CPU every call runs eagerly and equals the model
@@ -13,6 +14,8 @@ file imports no JAX, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_graph_replay.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -53,17 +56,14 @@ def assert_equal(a, b):
         assert torch.equal(x, y), name
 
 
-@pytest.fixture(scope="module", params=[torch.bfloat16, torch.float32],
-                ids=["bf16", "f32"])
-def served(request):
-    """The default Config()'s model on the card in one dtype, its mask
-    head scaled to unit logit spread (seed weights put every mask within
-    1e-4 of 0.5, which bf16 rounds to 0.5, so that nothing is claimed and
-    every image is the same)."""
+def card_model(cfg, dtype):
+    """``cfg``'s model on the card in ``dtype``, its mask head scaled to
+    unit logit spread (seed weights put every mask within 1e-4 of 0.5,
+    which bf16 rounds to 0.5, so that nothing is claimed and every image
+    is the same)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA graphs run only on the card")
-    cfg = Config()
-    model = build_model(cfg, "cuda", seed=0).to(request.param)
+    model = build_model(cfg, "cuda", seed=0).to(dtype)
     model.requires_grad_(False)
     batch = synthetic_batch(cfg, seed=100, batch_size=BATCH)
     out = forward(InferenceModel(cfg, {}, model), cfg, batch, 100,
@@ -71,7 +71,25 @@ def served(request):
     spread = float(torch.logit(out.masks_pred.double()).std())
     model.mask_net.out.weight.div_(spread)
     model.mask_net.out.bias.div_(spread)
-    return cfg, model, request.param
+    return model
+
+
+def config_256() -> Config:
+    """The paper's 256x256 COCO-Stuff model: Config() with the reference
+    trainer's --image_size 256,256."""
+    cfg = Config()
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, image_size=(256, 256)),
+        model=dataclasses.replace(cfg.model, image_size=(256, 256)))
+
+
+@pytest.fixture(scope="module", params=[torch.bfloat16, torch.float32],
+                ids=["bf16", "f32"])
+def served(request):
+    """The default Config()'s model on the card in one dtype
+    (``card_model``)."""
+    cfg = Config()
+    return cfg, card_model(cfg, request.param), request.param
 
 
 @pytest.mark.cuda
@@ -105,6 +123,35 @@ def test_replay_equals_eager(served, appearance):
     assert _cuda.LAUNCHES["stem"] == len(order)
     crops = len(order) if appearance == "crop" else 0
     assert _cuda.LAUNCHES["crop_fwd"] == crops, dict(_cuda.LAUNCHES)
+
+
+@pytest.mark.cuda
+def test_replay_equals_eager_at_256_px():
+    """The 256 px model in bf16 at b16: the stem runs in pixel bands
+    (``stem_tc_banded``, never ``stem_tc``) on every path, and each
+    replayed output equals the eager model's bit for bit."""
+    cfg = config_256()
+    model = card_model(cfg, torch.bfloat16)
+    batches = [synthetic_batch(cfg, seed=s, batch_size=BATCH)
+               for s in (1, 2)]
+    want = [forward(InferenceModel(cfg, {}, model), cfg, b, s, "features")
+            for s, b in enumerate(batches)]
+    assert want[0].imgs_pred.shape == (BATCH, 256, 256, 3)
+    assert not torch.equal(want[1].imgs_pred, want[0].imgs_pred)
+    im = InferenceModel(cfg, {}, model)
+    _cuda.LAUNCHES.clear()
+    _cuda.MODEL_CALLS.clear()
+    order = [0, 0, 1, 0, 1]
+    got = [forward(im, cfg, batches[i], i, "features") for i in order]
+    torch.cuda.synchronize()
+    assert dict(_cuda.MODEL_CALLS) == {"eager": 1, "capture": 1,
+                                       "replay": 3}
+    for i, out in zip(order, got):
+        assert_equal(out, want[i])
+    assert _cuda.LAUNCHES["stem_tc_banded"] == len(order), dict(
+        _cuda.LAUNCHES)
+    assert _cuda.LAUNCHES["stem"] == len(order)
+    assert _cuda.LAUNCHES["stem_tc"] == 0
 
 
 @pytest.mark.cuda

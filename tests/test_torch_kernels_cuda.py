@@ -426,10 +426,11 @@ def test_stem_tc_kernel_sends_each_dx_to_its_own_column(device, x0):
 
 
 def test_stem_tc_kernel_launch_config(device):
-    """At the serving shape: one block an SM, no spills, every band of a
-    16-image batch in one wave."""
+    """At the serving shape: whole rows, one block an SM, no spills, every
+    band of a 16-image batch in one wave."""
     config = tc_launch_config(16, 128, 128, 9, 64)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert config["band_pixels"] == 0
     assert config["blocks_per_sm"] == 1
     assert config["local_bytes"] == 0
     assert config["threads"] == 384
@@ -447,6 +448,117 @@ def test_stem_tc_kernel_at_the_edge_of_the_bf16_range(device):
     torch.cuda.synchronize()
     assert float(w_t.float().abs().max()) > 990
     _assert_bf16_stem_matches_plain(w_t, g_t, got)
+
+
+# (N, H, W, O, C) the whole-row kernel refuses, which the banded kernel
+# takes: W = 160 (bands of 128 and 32 pixels: a last band narrower than
+# 128, one n64 pass), 250 (a last band of 122), 256 with H = 13 and C = 72
+# (a second channel tile of 8), 512 with C = 40; O = 10 in bands of 64
+# (W = 200: 64, 64, 64 and 8), O = 14 in bands of 32 (W = 160 at C = 24,
+# each pass reading 32 pixels past its band) and O = 16 at W = 161 (a last
+# band of one pixel); the 256 px serving batch.
+STEM_TC_BANDED_SHAPES = [(2, 20, 160, 9, 64), (2, 12, 250, 9, 64),
+                         (1, 13, 256, 9, 72), (2, 10, 512, 9, 40),
+                         (2, 12, 200, 10, 64), (1, 12, 160, 14, 24),
+                         (1, 12, 161, 16, 64), (16, 256, 256, 9, 64)]
+
+
+@pytest.mark.parametrize("shape", STEM_TC_BANDED_SHAPES)
+def test_stem_tc_banded_kernel_matches_plain(device, shape):
+    w_t, g_t = _bf16_stem_case(device, *shape, seed=5)
+    before = dict(_cuda.LAUNCHES)
+    got = stem(w_t, g_t)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["stem_tc_banded"] == before.get(
+        "stem_tc_banded", 0) + 1
+    assert _cuda.LAUNCHES["stem_tc"] == before.get("stem_tc", 0)
+    assert _cuda.LAUNCHES["stem"] == before.get("stem", 0) + 1
+    _assert_bf16_stem_matches_plain(w_t, g_t, got)
+
+
+@pytest.mark.parametrize("n,w", [(16, 256), (2, 512)])
+def test_stem_tc_banded_kernel_is_bitwise_repeatable(device, n, w):
+    w_t, g_t = _bf16_stem_case(device, n, 64, w, 9, 64, seed=6)
+    first = stem(w_t, g_t)
+    assert torch.equal(first, stem(w_t, g_t))
+    _assert_bf16_stem_matches_plain(w_t, g_t, first)
+
+
+@pytest.mark.parametrize("x0", [0, 128])
+def test_stem_tc_banded_kernel_band_equals_the_whole_row_kernel(device, x0):
+    """Each band sums its elements in the whole-row kernel's order: the
+    band of pixels x0..x0+127 at W = 256 is, bit for bit, the whole-row
+    kernel's output on the field's columns x0..x0+133 alone (W = 128)."""
+    w_t, g_t = _bf16_stem_case(device, 4, 40, 256, 9, 64, seed=7)
+    before = dict(_cuda.LAUNCHES)
+    band = stem(w_t, g_t)[:, :, x0:x0 + 128]
+    whole = stem(w_t[:, :, x0:x0 + 134].contiguous(), g_t)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["stem_tc_banded"] == before.get(
+        "stem_tc_banded", 0) + 1
+    assert _cuda.LAUNCHES["stem_tc"] == before.get("stem_tc", 0) + 1
+    assert torch.equal(band, whole)
+
+
+@pytest.mark.parametrize("x0", [0, 127, 130, 134, 255, 261])
+def test_stem_tc_banded_kernel_sends_each_dx_to_its_own_column(device, x0):
+    """A field that is zero but at padded column x0, at and across the
+    boundary of two 128-pixel bands (x0 = 130 reaches output columns
+    124-130 of both): a band's halo read at a wrong offset shows as a
+    wrong or empty column."""
+    n, h, w, o, c = 2, 10, 256, 9, 64
+    rng = np.random.RandomState(4)
+    field = np.zeros((n, h + 6, w + 6, o), np.float32)
+    field[:, :, x0] = rng.uniform(0.5, 1.0, (n, h + 6, o))
+    taps = rng.uniform(-1, 1, (n, 7, 7, o, c)).astype(np.float32)
+    w_t = torch.from_numpy(field).to(device, torch.bfloat16)
+    g_t = torch.from_numpy(taps).to(device, torch.bfloat16)
+    assert tc_launch_config(n, h, w, o, c)["band_pixels"] == 128
+    got = stem(w_t, g_t).float()
+    torch.cuda.synchronize()
+    want = stem_plain(w_t.float(), g_t.float())
+    _assert_bf16_stem_matches_plain(w_t, g_t, got.bfloat16())
+    lit = [x0 - dx for dx in range(7) if 0 <= x0 - dx < w]
+    assert bool((want[:, :, lit].abs().amax(dim=(0, 1, 3)) > 0).all())
+    assert bool((got[:, :, lit].abs().amax(dim=(0, 1, 3)) > 0).all())
+    dark = [x for x in range(w) if x not in lit]
+    assert float(got[:, :, dark].abs().max()) == 0.0
+
+
+def test_stem_tc_banded_kernel_bands_with_a_last_band_of_one_row(device):
+    """16 images of 10 rows at W = 256: 32 columns of 128 pixels, bands of
+    3 rows, the last of 1 (on a card of 132 SMs; the test reads the
+    launch's band rows)."""
+    n, h, w, o, c = 16, 10, 256, 9, 64
+    config = tc_launch_config(n, h, w, o, c)
+    w_t, g_t = _bf16_stem_case(device, n, h, w, o, c, seed=3)
+    got = stem(w_t, g_t)
+    torch.cuda.synchronize()
+    assert config["band_pixels"] == 128
+    if torch.cuda.get_device_properties(0).multi_processor_count == 132:
+        assert h % config["band_rows"] == 1
+    _assert_bf16_stem_matches_plain(w_t, g_t, got)
+
+
+def test_stem_tc_launch_config_reports_the_band(device):
+    """The 128 px serving shape keeps whole rows (band_pixels 0,
+    stem_tc_kernel); the 256 px one takes bands of 128 pixels, every band
+    in one wave, one block an SM, no spills; O = 10 and O = 14 at 128 px
+    take bands of 64 and 32 pixels."""
+    props = torch.cuda.get_device_properties(0)
+    assert tc_launch_config(16, 128, 128, 9, 64)["band_pixels"] == 0
+    config = tc_launch_config(16, 256, 256, 9, 64)
+    assert config["band_pixels"] == 128
+    assert config["blocks_per_sm"] == 1
+    assert config["local_bytes"] == 0
+    assert config["threads"] == 384
+    assert config["ring_rows"] >= 7
+    assert config["grid"] <= props.multi_processor_count
+    bands = -(-256 // config["band_rows"])
+    assert 16 * 2 * bands == config["grid"]
+    assert config["dynamic_smem_bytes"] <= props.shared_memory_per_block_optin
+    assert tc_launch_config(16, 128, 128, 10, 64)["band_pixels"] == 64
+    assert tc_launch_config(16, 128, 128, 14, 64)["band_pixels"] == 32
 
 
 def _compositor_case(device, dtype, n, o, d, m, h, w):
@@ -560,10 +672,11 @@ def test_kernels_refuse_what_they_do_not_take(device):
     with pytest.raises(RuntimeError, match="stem kernel"):
         stem(torch.rand(1, 518, 518, 40, device=device),
              torch.rand(1, 7, 7, 40, 4, device=device))
-    # The bf16 kernel's field (8 rows x 518 pixels x 64 k) exceeds it too.
+    # The bf16 kernels' taps alone at O = 40 (7 x 288 k x 64 channels)
+    # exceed it, in whole rows and in bands.
     with pytest.raises(RuntimeError, match="stem kernel"):
-        stem(torch.rand(1, 518, 518, 9, device=device).bfloat16(),
-             torch.rand(1, 7, 7, 9, 4, device=device).bfloat16())
+        stem(torch.rand(1, 518, 518, 40, device=device).bfloat16(),
+             torch.rand(1, 7, 7, 40, 4, device=device).bfloat16())
     got = stem(w_t, g_t)
     torch.cuda.synchronize()
     assert float((got - stem_plain(w_t, g_t)).abs().max()) <= 1e-4
